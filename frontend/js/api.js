@@ -1,4 +1,4 @@
-// API client: REST + SSE streaming against the TPU backend.
+// API client: REST + SSE streaming against the simulation server.
 // Contract: GET /api/config/default, POST /api/validate, POST
 // /api/simulate/stream with SSE frames "data: {json}\n\n" and event types
 // phase / search_iter / search_refining / search_complete / result / error.

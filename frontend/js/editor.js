@@ -33,7 +33,7 @@ const FIELDS = {
   starting_working_months_search: { tip: "Lower bound for the search.", label: "Search start (months)", type: "int", section: "Simulation" },
   seed: { tip: "Fixes all randomness for reproducible runs; blank draws a fresh seed.", label: "Seed (blank = random)", type: "int-opt", section: "Simulation" },
   antithetic: { tip: "Variance reduction: pairs every path with a mirrored-shock twin. Unbiased; ~3x fewer paths for the same success-probability error in the 60-95% regime.", label: "Antithetic sampling", type: "toggle", section: "Simulation" },
-  num_processes: { tip: "Accepted for config compatibility; the TPU engine shards over devices.", label: "num_processes (compat)", type: "int-opt", section: "Simulation" },
+  num_processes: { tip: "Accepted for config compatibility; the engine shards over devices.", label: "num_processes (compat)", type: "int-opt", section: "Simulation" },
 };
 
 const STREAM_FIELDS = {

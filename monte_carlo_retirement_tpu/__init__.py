@@ -1,4 +1,4 @@
-"""TPU-native retirement Monte Carlo framework.
+"""Retirement Monte Carlo framework on JAX.
 
 A ground-up JAX/XLA re-architecture of the retirement planning Monte Carlo
 engine: the per-month lifecycle is a compiled `lax.scan`, paths are a
@@ -60,7 +60,7 @@ def __getattr__(name):
 
         return RetirementMonteCarloSimulator
     if name == "median_first_year_withdrawal_rate":
-        from .engine.simulator import median_first_year_withdrawal_rate
+        from .engine.summary import median_first_year_withdrawal_rate
 
         return median_first_year_withdrawal_rate
     if name == "find_minimum_working_months":

@@ -1,4 +1,4 @@
-"""Shared numeric constants for the TPU-native retirement Monte Carlo framework.
+"""Shared numeric constants for the retirement Monte Carlo framework.
 
 Parity notes: values mirror the reference engine's constants
 (reference: backend/constants.py:1-7) so that epsilon semantics and

@@ -1,6 +1,6 @@
 """The compiled path kernel: one `lax.scan` over absolute months.
 
-Design notes (TPU-first re-architecture of the reference's per-path Python
+Design notes (compiled re-architecture of the reference's per-path Python
 loop, backend/simulation.py:476-950):
 
   * The time axis is a `lax.scan` with a small struct-of-arrays carry; the

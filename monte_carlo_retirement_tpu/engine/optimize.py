@@ -1,7 +1,7 @@
 """Plan optimization over one or two config fields by batched grid refinement.
 
 A capability the reference has no analog for (its engine evaluates one
-config per request, backend/simulation.py:952-1128). The TPU-shaped
+config per request, backend/simulation.py:952-1128). The device-shaped
 algorithm is NOT a serial line search: each refinement round evaluates the
 full product grid over the current interval(s) in ONE scenario-grid
 dispatch (engine/scenario_batch.py), takes the argmax cell, and zooms each
@@ -99,9 +99,10 @@ class JointOptimizeResult(NamedTuple):
 
 
 # Rows per refinement round when optimizing jointly; each round is one
-# scenario-grid dispatch whose (k, n)-shaped intermediates must stay inside
-# HBM at the 1M-path serving scale (same budget as the serving model's
-# 257-point bound on the 1-D form).
+# scenario-grid dispatch whose two (k, n) f32 tables must fit in device
+# memory: 257 rows x 1M paths is ~2 GB, under 3% of an H100's 80 GB (the
+# same bound as the serving model's 257 points on the 1-D form; a
+# constant, not derived from the device).
 MAX_JOINT_ROWS = 257
 
 
@@ -199,7 +200,7 @@ def optimize_params(
         lo, hi = _bounds_for(p, lo, hi)
         # Guardrail bands carry a cross-field constraint (lower < upper):
         # intersect the sweep interval with the sibling band so a default
-        # sweep never generates configs pydantic rejects mid-round.
+        # sweep never generates configs Config rejects mid-round.
         sib = None
         if p == "spending_guardrails.lower_wr_pct":
             from .sensitivity import get_field
@@ -253,8 +254,8 @@ def optimize_params(
             seed=seed,
             # One dispatch per round (the module's design claim) — the row
             # count is host-bounded (257 in 1-D serving, MAX_JOINT_ROWS
-            # jointly), whose (k, n) grid intermediates stay comfortably
-            # inside HBM even at 1M paths. Above that path scale the
+            # jointly), whose (k, n) grid tables stay near 2 GB at 1M
+            # paths (an H100 has 80 GB). Above that path scale the
             # grid's MCRT_GRID_CELL_BUDGET guard splits the round into
             # exact CRN-preserving chunks.
             chunk_size=len(rows),

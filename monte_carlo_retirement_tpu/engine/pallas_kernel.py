@@ -1,65 +1,46 @@
-"""Pallas TPU fast path: the full path lifetime in one on-chip kernel.
+"""Pallas kernel (Triton route): each path's whole lifetime in registers.
 
-Why this exists: the XLA-scan kernel streams its ~10-vector carry through HBM
-on every one of 600 scan steps (~100 GB of traffic for 1M paths), which caps
-it around 400 ms/run. This kernel keeps ALL per-path state resident on chip
-for the whole lifetime — the only HBM traffic is the final per-path outputs —
-and generates shocks with the core-local PRNG (`pltpu.prng_random_bits`), so
-the month loop is pure VPU compute.
+Why this exists: the XLA scan (engine/kernel.py) carries every path's state
+through device memory on each of the ~600 months and materialises each
+month's threefry draws there. This kernel runs one program per block of
+paths; the state of each path stays in registers for the whole horizon, the
+draws are made inside the kernel, and the only device-memory traffic is the
+per-path outputs (plus, in full mode, one row store per recorded year).
 
-Round-2 architecture (measured on v5e, 1M x 600 months):
+Design:
 
-  * paths tile into blocks of (32, 128) = 4096 — the register-pressure sweet
-    spot (256-row blocks spilled the carry and ran 1.35x slower);
-  * the accumulation and retirement phases are SEPARATE dynamic-bound
-    `fori_loop`s with a straight-line retirement snapshot between them — no
-    per-month `m <= w` dispatch and no horizon-guard cond (those two scalar
-    branches cost ~54 ms/run at round-1 block sizes), and no horizon
-    bucketing: executables no longer depend on the scan length at all;
+  * the accumulation and retirement phases are separate dynamic-bound
+    `fori_loop`s with a straight-line retirement snapshot between them, so
+    `working_months` is a traced scalar: candidates never recompile;
   * structural config facts (which tax system each asset uses, whether any
     annual mark-to-market bill can exist, which streams are CPI-indexed /
-    duration-capped) are compile-time `Statics` — editing *rates/amounts*
-    never recompiles, flipping a tax *system* recompiles in seconds;
-  * the tax algebra exploits the average-cost-basis invariant (gain fraction
-    is unchanged by proportional sales), so one per-asset sale profile
-    serves the capacity check, the withdrawal AND the rebalance, and
-    realized tax is exactly `gross * eff` — no taxable-gain max() chains.
-    Pro-rata-by-net-capacity sales collapse further: with nc_i = b_i*nf_i
-    the withdrawal and the annual-tax bill each reduce to ONE shared sale
-    fraction (target/tnc) applied to both balances and bases, snapped to
-    exactly 1 in the capacity-limited branch so full liquidation zeroes
-    state bit-exactly;
-  * divisions lower to `pl.reciprocal(approx) + one Newton step` (~1.5e-5
-    relative, inside the engine's f32 `fail_rtol` tolerance budget);
-  * normals use a degree-9 single-branch polynomial quantile (coefficients
-    fitted against scipy erfinv over the full 23-bit uniform grid: max rel
-    err 1.4e-4, variance 0.9999994, kurtosis 3.000002, tail probabilities
-    match enumeration truth to 1e-6 — see scripts/perf_ablation.py).
+    duration-capped, and the optional extensions) are compile-time
+    `Statics` — editing rates/amounts never recompiles;
+  * the tax algebra exploits the average-cost-basis invariant (the gain
+    fraction is unchanged by proportional sales), so one per-asset sale
+    profile serves the capacity check, the withdrawal and the rebalance,
+    and realized tax is exactly `gross * eff`. Pro-rata-by-net-capacity
+    sales reduce the withdrawal and the annual bill to ONE shared sale
+    fraction (target / tnc) applied to both balances and bases.
 
-Layout: the grid iterates path blocks (and, for candidate/scenario grids, a
-leading candidate axis whose rows select per-candidate parameters from
-SMEM). `working_months` stays a traced SMEM scalar, so candidates never
-recompile.
-
-RNG: the per-core PRNG is seeded per (stream_seed, path-block) — candidate
-axes never enter the seed — and each month draws three normals in a fixed
-order (equity, inflation-independent, premium). Draws depend only on
-(stream, block, month, lane): common random numbers across working-month
-candidates and scenario grids hold structurally, like the XLA path. The bit
-streams differ from XLA's threefry, so cross-backend parity is statistical
-(Monte Carlo); the month *logic* matches the scan kernel and is pinned by
-injected-shocks parity tests.
-
-Probe mode and full mode share the (32, 128) tiling, but search and final
-runs use independent stream seeds by design, so CRN is relied on only
-*within* an entry point (across candidate months), never across entry
-points.
+Random numbers: the kernel draws the scan's own stream. Month m's key is
+``fold_in(stream_key, m)`` and path p's three normals are the threefry2x32
+counters ``3p, 3p+1, 3p+2`` of ``jax.random.normal(key_m, (n_paths, 3))``
+(partitionable threefry: bits = hi-word ^ lo-word), mapped to normals the
+way ``jax.random.normal`` maps them. Crash draws and the longevity uniform
+follow ops/shocks.py the same way. The draws are keyed by the GLOBAL path
+index, so the block size never changes a result, a sharded run reproduces
+a one-device run path for path, and antithetic pairing is the scan's
+path-level rule (path 2i+1 negates path 2i). Kernel and scan therefore
+simulate the same paths; they differ only by float32 rounding (exp/log
+implementations, fused multiply-adds, summation order).
 
 Entry points: `pallas_simulate` (per-path success/final), `pallas_probe`
 (candidate-parallel success probabilities for the search),
 `pallas_simulate_full` (adds retirement snapshots and the yearly
-trajectory/price/withdrawal-rate series via in-ref stores), and
-`pallas_scenario_grid` (per-row parameter sweeps).
+trajectory/price/withdrawal-rate series), `pallas_scenario_grid` /
+`pallas_scenario_grid_raw` (per-row parameter sweeps), and their
+`*_sharded` forms over a 1-D 'paths' mesh.
 """
 
 from __future__ import annotations
@@ -70,29 +51,27 @@ from typing import NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..constants import MONTHS_PER_YEAR, SMALL_EPSILON
 from ..models.retirement import SimParams
+from ..ops.shocks import JUMP_FOLD_OFFSET, MORT_FOLD_OFFSET
 from ..ops.tax import fail_rtol
 
 EPS = SMALL_EPSILON
 FAIL_RTOL = fail_rtol(jnp.float32)  # shared with the scan kernel
 
-BLOCK_ROWS = 32  # paths per block = 32 * 128 = 4096 (register-resident carry)
-BLOCK_PATHS = BLOCK_ROWS * 128
-FULL_BLOCK_ROWS = 32  # full mode: series buffers also fit VMEM at 32 rows
-# Full mode keeps two (traj_len, 32, 128) f32 series plus the WR buffer in
-# VMEM: 16 KiB per trajectory slot per series. 256 slots (~8.4 MiB for both)
-# leaves comfortable headroom; wider horizons fall back to the scan backend
-# (engine/runner.py) rather than risk a Mosaic VMEM failure.
-PALLAS_MAX_TRAJ_LEN = 256
+# Paths per program and warps per program (Triton block sizes are powers of
+# two). Results do not depend on either: draws are keyed by global path.
+BLOCK_PATHS = 512
+NUM_WARPS = 4
 
-# fparams vector layout (float32, SMEM). The use_real/bill flags are NOT
-# here: the tax system is compile-time Statics, never a traced parameter —
-# grid rows that disagree with the Statics are rejected before dispatch
+# fparams vector layout (float32). The use_real/bill flags are NOT here: the
+# tax system is compile-time Statics, never a traced parameter — grid rows
+# that disagree with the Statics are rejected before dispatch
 # (_check_grid_statics), not read per row.
 (
     F_MU1_M, F_S1_M, F_MUI_M, F_SI_M, F_MUP_M, F_SP_M,
@@ -106,35 +85,32 @@ PALLAS_MAX_TRAJ_LEN = 256
     F_MORT_G0, F_MORT_B12, F_MORT_CAP,
     NUM_FPARAMS,
 ) = range(33)
+FPARAMS_PAD = 64  # the parameter vector is padded to a power of two
 
-# iparams vector layout (int32, SMEM). I_BLOCK_OFF shifts the per-block PRNG
-# seed index: on a sharded mesh every device passes its global block offset,
-# so shard-local block 0 on device d draws the stream of global block
-# d * blocks_per_shard — device count never changes which streams exist.
-I_W, I_T_END, I_SEED, I_BLOCK_OFF, NUM_IPARAMS = range(5)
+# iparams row layout (int32): working months, horizon end, the global block
+# offset of this call's block 0 (a sharded or chunked dispatch passes its
+# place in the global block sequence, so draws stay keyed by global path
+# index), and the antithetic flag. The flag is data, not structure: iid and
+# antithetic runs execute the same program, so the even paths of an
+# antithetic run equal a half-size iid run bit for bit on any backend.
+I_W, I_T_END, I_BLOCK_OFF, I_ANTI, NUM_IPARAMS = range(5)
 
-_INV_2_22 = 1.0 / float(1 << 22)
-_X_OFFSET = 1.0 / float(1 << 23) - 1.0
+# Shock-injection planes (tests and parity checks): 3 base normals, then the
+# crash uniform and normal, then the longevity uniform (read at month 0).
+SHOCK_JUMP_U, SHOCK_JUMP_Z, SHOCK_MORT_U = 3, 4, 5
 
-# z = sqrt(2)*erfinv(x) = x * P(s), s = sqrt(-log1p(-x^2)); single minimax
-# branch over the whole reachable range (23-bit uniforms => |x| <= 1-2^-23,
-# s <= 3.905). Descending Horner order; sqrt(2) folded into the fit.
-# Accuracy over the full input grid: max rel 1.43e-4; moments/tails in the
-# module docstring. Fitted in scripts/perf_ablation.py against scipy.
-_ZPOLY = (
-    0.0001782477551054519, -0.0028148533007281555,
-    0.016944312865490738, -0.04569300513968381,
-    0.04307398034973402, 0.014180894039555763,
-    -0.028215645346410155, 0.3470778790734455,
-    -0.003963483920460122, 1.2534926535177795,
-)
+_THREEFRY_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_NORMAL_LO = np.nextafter(np.float32(-1.0), np.float32(0.0))
+# jax.random.uniform scales by (maxval - minval) computed in float32
+_NORMAL_SPAN = np.float32(np.float32(1.0) - _NORMAL_LO)
+_SQRT2 = np.float32(np.sqrt(2.0))
 
 
 class Statics(NamedTuple):
     """Compile-time structure of a scenario: which tax *systems* are active
     and the shape of the income-stream table. Rates/amounts/ages stay traced
     (editing them reuses the executable); flipping any of these flags builds
-    a new kernel (seconds)."""
+    a new kernel."""
 
     use_real1: bool
     use_real2: bool
@@ -146,9 +122,10 @@ class Statics(NamedTuple):
     bill2: bool
     stream_indexed: Tuple[bool, ...]
     stream_capped: Tuple[bool, ...]
-    # Antithetic sampling (config.antithetic, default off): global path
-    # block 2k+1 replays block 2k's PRNG stream with every normal negated.
-    # Compile-time so the sign multiply vanishes from the default kernel.
+    # Antithetic sampling (config.antithetic): path 2i+1 replays path 2i's
+    # draws negated (the scan's rule, ops/shocks.monthly_shocks). The
+    # kernel reads it as data (iparams I_ANTI); it is part of the Statics so
+    # that one grid dispatch cannot mix it.
     antithetic: bool = False
     # Allocation glide path (config.allocation_inv1_final_pct is not None):
     # the rebalance target interpolates alloc1 -> alloc1_final over the
@@ -161,21 +138,15 @@ class Statics(NamedTuple):
     # carry slot and every year-start band op from the kernel.
     guardrails: bool = False
     # Market-crash jumps (config.market_crashes is not None): each month
-    # draws one extra uniform + normal for the compensated jump factor.
-    # Compile-time because the flag changes the PRNG draw COUNT per month —
-    # the crash-free kernel's bit stream (and executable) is untouched.
-    # Like `antithetic`, one grid dispatch cannot mix it (grid_statics
-    # enforces uniformity); p=0 sentinel rows inside a jumps-on executable
-    # are exact no-ops of THAT executable's (shifted) stream.
+    # draws one extra uniform + normal for the compensated jump factor from
+    # a disjoint fold_in stream, so the base draws are untouched. One grid
+    # dispatch cannot mix it (grid_statics enforces uniformity); p=0
+    # sentinel rows inside a jumps-on executable are exact no-ops.
     jumps: bool = False
     # Longevity (config.longevity is not None): one extra uniform per path
-    # (drawn from a salted re-seed BEFORE the base stream is seeded, so the
-    # base month stream is untouched) becomes a remaining lifetime at the
+    # (again a disjoint stream) becomes a remaining lifetime at the
     # retirement date; expired months zero the spending need while the
-    # estate keeps evolving. Compile-time because the flag changes the PRNG
-    # draw structure; grid dispatches cannot mix it (grid_statics), and
-    # sentinel rows (mort_b12 = 0) inside a mortality-on executable never
-    # expire by the d = +inf override.
+    # estate keeps evolving. Sentinel rows (mort_b12 = 0) never expire.
     mortality: bool = False
 
 
@@ -217,34 +188,28 @@ def _check_grid_statics(params_batch: SimParams, statics: Statics) -> None:
     row's structure. Traced inputs skip the check (callers validate configs
     via engine.scenario_batch.grid_statics)."""
     try:
-        import numpy as _np
-
-        u1 = _np.asarray(params_batch.use_real1) > 0.5
-        u2 = _np.asarray(params_batch.use_real2) > 0.5
-        a1 = _np.asarray(params_batch.ann_tax1) > 0.0
-        a2 = _np.asarray(params_batch.ann_tax2) > 0.0
+        u1 = np.asarray(params_batch.use_real1) > 0.5
+        u2 = np.asarray(params_batch.use_real2) > 0.5
+        a1 = np.asarray(params_batch.ann_tax1) > 0.0
+        a2 = np.asarray(params_batch.ann_tax2) > 0.0
         # (K, S) per-row stream structure vs the static per-stream flags
-        s_idx = _np.asarray(params_batch.stream_indexed) > 0.5
-        s_cap = _np.isfinite(_np.asarray(params_batch.stream_duration_months))
+        s_idx = np.asarray(params_batch.stream_indexed) > 0.5
+        s_cap = np.isfinite(np.asarray(params_batch.stream_duration_months))
         # Without the glide flag the kernel never reads alloc1_final: a row
         # with a real glide endpoint would silently simulate constant-alloc.
-        glide_rows = _np.asarray(params_batch.alloc1_final) != _np.asarray(
+        glide_rows = np.asarray(params_batch.alloc1_final) != np.asarray(
             params_batch.alloc1
         )
         # Same for guardrails: adjustment > 0 marks a row with a live rule.
-        gr_rows = _np.asarray(params_batch.gr_adjust) > 0.0
-        # And for jumps: p > 0 marks a live crash rule. The flag changes
-        # the PRNG draw structure, so a live row under a jumps-off
-        # executable would silently simulate crash-free.
-        jump_rows = _np.asarray(params_batch.jump_p) > 0.0
-        # And for longevity: b12 > 0 marks a live lifespan rule; a live
-        # row under a mortality-off executable would silently simulate the
-        # fixed horizon.
-        mort_rows = _np.asarray(params_batch.mort_b12) > 0.0
-    except Exception:
+        gr_rows = np.asarray(params_batch.gr_adjust) > 0.0
+        # And for jumps: p > 0 marks a live crash rule.
+        jump_rows = np.asarray(params_batch.jump_p) > 0.0
+        # And for longevity: b12 > 0 marks a live lifespan rule.
+        mort_rows = np.asarray(params_batch.mort_b12) > 0.0
+    except jax.errors.TracerArrayConversionError:
         return  # tracers: cannot inspect values here
-    want_idx = _np.asarray(statics.stream_indexed, dtype=bool)
-    want_cap = _np.asarray(statics.stream_capped, dtype=bool)
+    want_idx = np.asarray(statics.stream_indexed, dtype=bool)
+    want_cap = np.asarray(statics.stream_capped, dtype=bool)
     ok = (
         bool((u1 == statics.use_real1).all())
         and bool((u2 == statics.use_real2).all())
@@ -273,76 +238,75 @@ def _check_grid_statics(params_batch: SimParams, statics: Statics) -> None:
         )
 
 
-def _rdiv(a, b):
-    """a / b via approximate reciprocal + one Newton step (~1.5e-5 relative,
-    inside the f32 fail_rtol budget; pinned by the f32-vs-f64 parity test)."""
-    r = pl.reciprocal(b, approx=True)
-    return a * (r * (2.0 - b * r))
+# ---------------------------------------------------------------------------
+# Counter-based generator: threefry2x32 in uint32 add/rotate/xor, the same
+# function jax.random evaluates, so kernel draws equal jax.random draws.
+# ---------------------------------------------------------------------------
 
 
-def _normal(shape):
-    """One standard-normal-times-sqrt(2)-quantile per lane.
-
-    23 random bits -> x uniform on [-1+2^-23, 1-2^-23] (never +-1, so the
-    quantile stays finite; tails reach ~5.4 sigma) -> z = x * P(s) with the
-    single-branch polynomial above. Returns sqrt(2)*erfinv(x), i.e. a
-    standard normal.
-    """
-    bits = pltpu.prng_random_bits(shape)
-    r = jax.lax.shift_right_logical(
-        pltpu.bitcast(bits, jnp.int32), jnp.int32(9)
-    ).astype(jnp.float32)
-    x = r * _INV_2_22 + _X_OFFSET
-    s = jnp.sqrt(-jnp.log1p(-(x * x)))
-    acc = jnp.full(shape, _ZPOLY[0], jnp.float32)
-    for c in _ZPOLY[1:]:
-        acc = acc * s + c
-    return acc * x
+def _rotl(x, r: int):
+    return (x << r) | (x >> (32 - r))
 
 
-def _uniform(shape):
-    """One uniform on [0, 1 - 2^-23] per lane (23 random bits, exact f32)."""
-    bits = pltpu.prng_random_bits(shape)
-    r = jax.lax.shift_right_logical(
-        pltpu.bitcast(bits, jnp.int32), jnp.int32(9)
-    ).astype(jnp.float32)
-    return r * jnp.float32(1.0 / (1 << 23))
+def threefry2x32(k0, k1, x0, x1):
+    """The Threefry-2x32 block cipher (20 rounds), as jax.random runs it."""
+    ks = (k0, k1, k0 ^ k1 ^ jnp.uint32(0x1BD11BDA))
+    x0 = x0 + ks[0]
+    x1 = x1 + ks[1]
+    for i in range(5):
+        for r in _THREEFRY_ROT[i % 2]:
+            x0 = x0 + x1
+            x1 = _rotl(x1, r)
+            x1 = x0 ^ x1
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + ks[(i + 2) % 3] + jnp.uint32(i + 1)
+    return x0, x1
 
 
-class _PackedView:
-    """A leading-axis window of the packed full-mode output ref.
+def fold_in(k0, k1, data):
+    """jax.random.fold_in on a raw threefry key: hash of counter (0, data)."""
+    return threefry2x32(k0, k1, jnp.uint32(0), jnp.asarray(data).astype(jnp.uint32))
 
-    Full mode historically used ten separate output refs; Mosaic gives each
-    its own VMEM window and per-grid-step copy-out. Packing them into one
-    ``(7 + 2*traj_len + R, rows, 128)`` ref collapses those windows into a
-    single DMA stream; this view translates the kernel body's historical
-    indexing (``[:]``, ``[int]``, ``[pl.ds(...)]``) onto the packed leading
-    axis so the month-loop code is shared verbatim between layouts —
-    bit-identity between the layouts holds by construction.
-    """
 
-    def __init__(self, ref, offset, length, vec=False):
-        self.ref, self.offset, self.length, self.vec = ref, offset, length, vec
+def random_bits(k0, k1, counter):
+    """The 32 random bits jax.random draws at flat index ``counter`` (< 2^32)
+    of an array under key (k0, k1): partitionable threefry, hi ^ lo."""
+    b0, b1 = threefry2x32(k0, k1, jnp.uint32(0), counter)
+    return b0 ^ b1
 
-    @property
-    def shape(self):
-        base = tuple(self.ref.shape[1:])
-        return base if self.vec else (self.length,) + base
 
-    def _key(self, key):
-        if isinstance(key, slice):
-            assert key == slice(None), "packed views take full slices only"
-            return self.offset if self.vec else pl.ds(self.offset, self.length)
-        if isinstance(key, int):
-            return self.offset + key
-        # pl.ds(...) — a pallas Slice (static or dynamic start)
-        return pl.ds(key.start + self.offset, key.size)
+def bits_to_unit(bits):
+    """jax.random.uniform's mapping: 23 mantissa bits -> [0, 1)."""
+    one = lax.bitcast_convert_type(
+        (bits >> 9) | jnp.uint32(0x3F800000), jnp.float32
+    )
+    return one - jnp.float32(1.0)
 
-    def __getitem__(self, key):
-        return self.ref[self._key(key)]
 
-    def __setitem__(self, key, value):
-        self.ref[self._key(key)] = value
+def bits_to_normal(bits):
+    """jax.random.normal's mapping: uniform on (-1, 1), sqrt(2) * erf_inv."""
+    u = bits_to_unit(bits) * _NORMAL_SPAN + _NORMAL_LO
+    u = jnp.maximum(jnp.float32(_NORMAL_LO), u)
+    return _SQRT2 * lax.erf_inv(u)
+
+
+def _mod12(x):
+    """x % 12 for x >= 0 (lax.rem: the Triton route lowers it directly)."""
+    return lax.rem(x, jnp.int32(MONTHS_PER_YEAR))
+
+
+def _div12(x):
+    """x // 12 for x >= 0."""
+    return lax.div(x, jnp.int32(MONTHS_PER_YEAR))
+
+
+def _key_words(seed):
+    """Raw threefry key words (uint32[2]) from either a raw key (the
+    engine's stream keys) or an integer seed (jax.random.PRNGKey)."""
+    seed = jnp.asarray(seed)
+    if seed.ndim == 0:
+        seed = jax.random.PRNGKey(seed)
+    return seed.astype(jnp.uint32).reshape(2)
 
 
 def _make_kernel(
@@ -352,26 +316,19 @@ def _make_kernel(
     statics: Statics,
     block_axis: int = 0,
     cand_axis=None,
-    rows: int = BLOCK_ROWS,
     traj_len: int = 0,
     multi_params: bool = False,
-    interpret: bool = False,
-    packed: int = 0,
 ):
     """Build the block kernel for one (streams, R, statics) combination.
 
-    ``interpret`` swaps the hardware PRNG for a threefry stream keyed by
-    (block seed, month) — `pltpu.prng_*` has no CPU lowering — so the
-    global-block seeding structure (CRN, shard offsets) is testable on CPU;
-    bit streams differ from the device PRNG, which is already true across
-    backends.
-
     The month loop is two dynamic-bound fori_loops (accumulation, then
     retirement) around a straight-line retirement snapshot; per-candidate
-    `working_months` lives in SMEM so candidates share one executable.
+    `working_months` is read from iparams so candidates share one
+    executable.
     """
     R = retirement_years
-    shape = (rows, 128)
+    B = BLOCK_PATHS
+    shape = (B,)
     track = traj_len > 0
     st_ = statics
     any_bills = st_.bill1 or st_.bill2
@@ -387,167 +344,106 @@ def _make_kernel(
     # [g1a, g2a, preret_f] when any_bills
     # n_fixed fixed-nominal slots
     # [spending multiplier] when guardrails
-    # [ytr, start_bal, infl_ret, yg, yr, fy_g, fy_r] when track
+    # [ytr, yg, yr] when track
     i_bills = 6
     i_fixed = i_bills + (3 if any_bills else 0)
     i_spend = i_fixed + n_fixed
     i_track = i_spend + (1 if st_.guardrails else 0)
 
-    def kernel(iparams, fparams, *rest):
+    def kernel(key_ref, iparams, fparams, *rest):
         rest = list(rest)
         if n_streams:
             s_amount, s_from_t0, s_duration, s_indexed, s_tax = rest[:5]
             rest = rest[5:]
         if with_shocks:
             shocks_ref = rest.pop(0)
-        track_refs = track and packed == 2
-        if track and packed:
-            (out_full,) = rest
-            (out_success, out_final, out_start, out_ytr, out_fyg, out_fyr,
-             out_inflret) = (
-                _PackedView(out_full, i, 1, vec=True) for i in range(7)
-            )
-            # packed=2: the per-month track accumulators (yg, yr; ytr lives
-            # in its own output slot) move from loop carries to VMEM scratch
-            # rows of the packed buffer — 3 fewer carries in BOTH month
-            # loops at the cost of a ref load+store per month.
-            base = 9 if track_refs else 7
-            if track_refs:
-                yg_view = _PackedView(out_full, 7, 1, vec=True)
-                yr_view = _PackedView(out_full, 8, 1, vec=True)
-            out_traj = _PackedView(out_full, base, traj_len)
-            out_price = _PackedView(out_full, base + traj_len, traj_len)
-            out_wr = _PackedView(out_full, base + 2 * traj_len, R)
-        elif track:
+        if track:
+            # traj/price/wr inputs are aliased to their outputs: the
+            # initial fill (zeros / ones / NaN) comes in with the buffers.
+            rest = rest[3:]
             (out_success, out_final, out_start, out_ytr, out_fyg, out_fyr,
              out_inflret, out_traj, out_price, out_wr) = rest
         else:
             out_success, out_final = rest
 
         row = pl.program_id(cand_axis) if cand_axis is not None else 0
+        pid = pl.program_id(block_axis)
+        cols = pl.ds(pl.multiple_of(pid * B, B), B)
+
+        def vload(ref):
+            return ref[row, cols]
+
+        def vstore(ref, value):
+            ref[row, cols] = value
+
+        def series_store(ref, slot, value):
+            ref[slot, cols] = value
+
         w = iparams[row, I_W]
         t_end = iparams[row, I_T_END]
         if multi_params:
             # Scenario grids: every float parameter (and stream table) is a
-            # per-candidate row. Read the row ONCE here — per-use SMEM reads
-            # inside the month loop defeat loop-invariant hoisting (~25x).
+            # per-candidate row, read once here.
             fvals = [fparams[row, i] for i in range(NUM_FPARAMS)]
-            f = lambda i: fvals[i]
-            _cells = {}
-
-            def stream_cell(arr, s):
-                key = (id(arr), s)
-                if key not in _cells:
-                    _cells[key] = arr[row, s]
-                return _cells[key]
+            stream_cell = lambda arr, s: arr[row, s]
         else:
             fvals = [fparams[i] for i in range(NUM_FPARAMS)]
-            f = lambda i: fvals[i]
-            if n_streams:
-                _svals = {
-                    id(arr): [arr[s] for s in range(n_streams)]
-                    for arr in (s_amount, s_from_t0, s_duration, s_indexed,
-                                s_tax)
-                }
-                stream_cell = lambda arr, s: _svals[id(arr)][s]
-            else:
-                stream_cell = lambda arr, s: arr[s]
+            stream_cell = lambda arr, s: arr[s]
+        f = lambda i: fvals[i]
+        if n_streams:
+            svals = {
+                id(arr): [stream_cell(arr, s) for s in range(n_streams)]
+                for arr in (s_amount, s_from_t0, s_duration, s_indexed, s_tax)
+            }
+            cell = lambda arr, s: svals[id(arr)][s]
         w_f = w.astype(jnp.float32)
-        # Loop-invariant residue: (w + k) % 12 == 0  <=>  k % 12 ==
-        # boundary_k, so the retirement loop derives ALL its calendar
-        # predicates from the single k % 12 below (integer mod lowers to
-        # a multi-op divide sequence; dropping two of the three distinct
-        # per-month mods measured -1.9 ms at 1M x 600 full mode).
-        boundary_k = (
-            MONTHS_PER_YEAR - w % MONTHS_PER_YEAR
-        ) % MONTHS_PER_YEAR
-        # Injected-shock runs (tests) supply their own z — antithetic applies
-        # only to in-kernel PRNG draws.
-        antithetic = st_.antithetic and not with_shocks
 
         if not with_shocks:
-            # Per-(stream, GLOBAL path-block) seed: golden-ratio mix keeps
-            # block streams decorrelated; int32 overflow wraps, which is
-            # fine for mixing. Candidate grid axes do NOT enter the seed
-            # (CRN); on a sharded mesh the block offset makes local block
-            # ids globally unique.
-            gblock = pl.program_id(block_axis) + iparams[row, I_BLOCK_OFF]
-            if antithetic:
-                # Antithetic pairing at block granularity: blocks (2k, 2k+1)
-                # share PRNG stream k; the odd member negates every normal.
-                # Global ids keep the pairing invariant under sharding and
-                # path chunking, and even blocks bit-match an iid run's
-                # block k (pinned in tests/test_antithetic.py).
-                z_sign = (1 - 2 * (gblock % 2)).astype(jnp.float32)
-                gblock = gblock // 2
-            block_seed = iparams[row, I_SEED] ^ (
-                gblock * jnp.int32(-1640531527)
+            k0 = key_ref[0]
+            k1 = key_ref[1]
+            gpath = (iparams[row, I_BLOCK_OFF] + pid) * B + lax.broadcasted_iota(
+                jnp.int32, shape, 0
             )
-            if interpret:
-                # bit-exact reinterpretation: abs() would alias seed pairs
-                # (x, -x) onto one stream and leaves INT32_MIN negative
-                sw_key = jax.random.key(
-                    jax.lax.bitcast_convert_type(block_seed, jnp.uint32)
-                )
-            else:
-                pltpu.prng_seed(block_seed)
+            # Antithetic: path 2i+1 replays path 2i's draws (row i), negated.
+            anti = iparams[row, I_ANTI] != 0
+            odd = anti & ((gpath & 1) == 1)
+            draw_row = jnp.where(anti, gpath >> 1, gpath).astype(jnp.uint32)
+            ctr3 = draw_row * jnp.uint32(3)
 
         def draw_normals(m):
-            if interpret:
-                z = jax.random.normal(
-                    jax.random.fold_in(sw_key, m), (3,) + shape, jnp.float32
+            km0, km1 = fold_in(k0, k1, m)
+            return [
+                jnp.where(odd, -zz, zz)
+                for zz in (
+                    bits_to_normal(random_bits(km0, km1, ctr3 + jnp.uint32(j)))
+                    for j in range(3)
                 )
-                z0, z1, z2 = z[0], z[1], z[2]
-            else:
-                z0, z1, z2 = _normal(shape), _normal(shape), _normal(shape)
-            if antithetic:
-                return z0 * z_sign, z1 * z_sign, z2 * z_sign
-            return z0, z1, z2
+            ]
 
         def draw_jump(m):
-            """Crash draws (u, z_j); the device PRNG consumes them right
-            after the month's three base normals (fixed order). Interpret
-            mode folds months at a disjoint offset, mirroring the scan
-            kernel's jump stream structure."""
+            """Crash draws (u, z_j): ops/shocks.monthly_jump_draws — the
+            month key folds at JUMP_FOLD_OFFSET and splits into (ku, kz)."""
             if with_shocks:
-                return shocks_ref[m - 1, 3], shocks_ref[m - 1, 4]
-            if interpret:
-                kj = jax.random.fold_in(sw_key, m + (1 << 20))
-                u = jax.random.uniform(kj, shape, jnp.float32)
-                zj = jax.random.normal(
-                    jax.random.fold_in(kj, 1), shape, jnp.float32
-                )
-            else:
-                u = _uniform(shape)
-                zj = _normal(shape)
-            if antithetic:
-                # Mirror the pair: z negates, u reflects (occurrences
-                # anti-correlate; both stay marginally correct).
-                u = jnp.where(z_sign > 0, u, 1.0 - u)
-                zj = zj * z_sign
-            return u, zj
+                return (shocks_ref[m - 1, SHOCK_JUMP_U, cols],
+                        shocks_ref[m - 1, SHOCK_JUMP_Z, cols])
+            kj0, kj1 = fold_in(k0, k1, m + JUMP_FOLD_OFFSET)
+            ku0, ku1 = threefry2x32(kj0, kj1, jnp.uint32(0), jnp.uint32(0))
+            kz0, kz1 = threefry2x32(kj0, kj1, jnp.uint32(0), jnp.uint32(1))
+            u = bits_to_unit(random_bits(ku0, ku1, draw_row))
+            zj = bits_to_normal(random_bits(kz0, kz1, draw_row))
+            # Antithetic pairs mirror: z negates, u reflects.
+            return jnp.where(odd, 1.0 - u, u), jnp.where(odd, -zj, zj)
 
         if st_.mortality:
-            # Longevity (config.longevity): ONE uniform per path, turned
-            # into a remaining lifetime at the retirement date. Hardware
-            # mode draws it from a salted re-seed and then restores the
-            # base seed, so the month stream below is bit-identical to a
-            # mortality-off executable; interpret mode folds at the same
-            # disjoint offset the scan kernel uses.
+            # Longevity (config.longevity): ONE uniform per path
+            # (ops/shocks.mortality_uniform), turned into a remaining
+            # lifetime at the retirement date.
             if with_shocks:
-                u_mort = shocks_ref[0, 5]
-            elif interpret:
-                u_mort = jax.random.uniform(
-                    jax.random.fold_in(sw_key, 1 << 21), shape, jnp.float32
-                )
+                u_mort = shocks_ref[0, SHOCK_MORT_U, cols]
             else:
-                pltpu.prng_seed(block_seed ^ jnp.int32(668265261))
-                u_mort = _uniform(shape)
-                pltpu.prng_seed(block_seed)
-            if antithetic:
-                # u -> 1-u mirrors the longevity percentile: paired paths
-                # anti-correlate lifespans (small u = long life).
-                u_mort = jnp.where(z_sign > 0, u_mort, 1.0 - u_mort)
+                km0, km1 = fold_in(k0, k1, MORT_FOLD_OFFSET)
+                u_mort = bits_to_unit(random_bits(km0, km1, draw_row))
+                u_mort = jnp.where(odd, 1.0 - u_mort, u_mort)
             from ..ops.shocks import gompertz_remaining_months
 
             d_mort = gompertz_remaining_months(
@@ -558,8 +454,7 @@ def _make_kernel(
         alloc1 = f(F_ALLOC1)
         if st_.glide:
             # Linear target glide a0 -> af over the working months; the
-            # retirement phase holds af exactly. Scalar ops on SMEM values —
-            # the per-month interpolation costs two flops on the scalar core.
+            # retirement phase holds af exactly.
             alloc1_ret = f(F_ALLOC1_F)
             glide_scale = (alloc1_ret - alloc1) / jnp.maximum(w_f, 1.0)
         else:
@@ -571,9 +466,7 @@ def _make_kernel(
             stream_start = [
                 jnp.maximum(
                     0.0,
-                    jnp.ceil(
-                        jnp.maximum(0.0, stream_cell(s_from_t0, s) - w_f) - EPS
-                    ),
+                    jnp.ceil(jnp.maximum(0.0, cell(s_from_t0, s) - w_f) - EPS),
                 )
                 for s in range(n_streams)
             ]
@@ -591,7 +484,7 @@ def _make_kernel(
                     b > EPS, b, 0.0
                 )
             safe = jnp.where(b > EPS, b, 1.0)
-            gf = _rdiv(jnp.maximum(0.0, b - c), safe)
+            gf = jnp.maximum(0.0, b - c) / safe
             eff = gf * rate
             nf = 1.0 - eff
             nc = jnp.where(b > EPS, b * nf, 0.0)
@@ -613,8 +506,8 @@ def _make_kernel(
             eff_s = jnp.where(sell1, eff1, eff2)
             alloc_s = jnp.where(sell1, a1, 1.0 - a1)
             denom = jnp.maximum(EPS, 1.0 - alloc_s * eff_s)
-            gross_s = jnp.minimum(bal_s, _rdiv(adrift, denom))
-            frac_s = _rdiv(gross_s, jnp.where(bal_s > EPS, bal_s, 1.0))
+            gross_s = jnp.minimum(bal_s, adrift / denom)
+            frac_s = gross_s / jnp.where(bal_s > EPS, bal_s, 1.0)
             net_p = gross_s * (1.0 - eff_s)
             new_sb = bal_s - gross_s
             new_sc = basis_s - basis_s * frac_s
@@ -662,13 +555,11 @@ def _make_kernel(
             tol = EPS + FAIL_RTOL * (total_due + tnc)
             do_pay = (tnc > EPS) & (payment > 0)
             pay_f = jnp.where(do_pay, 1.0, 0.0)
-            # _rdiv carries ~1.5e-5 relative error, so just below the
-            # capacity boundary the fraction could exceed 1 and transiently
-            # drive balances negative; the minimum makes 0 <= frac <= 1 hold
-            # by construction (free on the VPU) instead of relying on the
-            # downstream <= EPS zeroing clamp.
+            # The minimum makes 0 <= frac <= 1 hold by construction, so
+            # rounding just below the capacity boundary cannot drive
+            # balances negative.
             frac_t = jnp.minimum(1.0, jnp.where(
-                total_due >= tnc, 1.0, _rdiv(total_due, jnp.maximum(tnc, EPS))
+                total_due >= tnc, 1.0, total_due / jnp.maximum(tnc, EPS)
             )) * pay_f
             keep_t = 1.0 - frac_t
             ok1 = nc1 > 0
@@ -689,31 +580,15 @@ def _make_kernel(
             b1, c1, b2, c2 = monthly_rebalance(b1, c1, b2, c2, a1)
             return b1, c1, b2, c2, tfail
 
-        # A zero vector with a materialized (non-replicated) layout: loop
-        # carries seeded from replicated constants would force the body's
-        # computed vectors into an invalid relayout under Mosaic.
-        zero_v = (
-            jax.lax.broadcasted_iota(jnp.int32, shape, 0)
-            + jax.lax.broadcasted_iota(jnp.int32, shape, 1)
-        ).astype(jnp.float32) * 0.0
+        zero_v = jnp.zeros(shape, jnp.float32)
         b1_0 = zero_v + f(F_INIT_BAL) * alloc1
         b2_0 = zero_v + f(F_INIT_BAL) - b1_0
         if track:
-            out_traj[:] = jnp.zeros((traj_len, rows, 128), jnp.float32)
-            out_traj[0] = zero_v + f(F_INIT_BAL)
-            out_price[:] = jnp.ones((traj_len, rows, 128), jnp.float32)
-            out_wr[:] = jnp.full((R, rows, 128), jnp.nan, jnp.float32)
-            # First-year withdrawals accumulate by read-modify-write on the
-            # output refs (their cap window is the first retirement year
-            # only); start_balance / inflation_at_retirement are stored once
-            # at the snapshot. Keeping all four OUT of the loop carry trims
-            # register pressure in the 600-iteration retirement loop.
-            out_fyg[:] = zero_v
-            out_fyr[:] = zero_v
-            if track_refs:
-                out_ytr[:] = zero_v
-                yg_view[:] = zero_v
-                yr_view[:] = zero_v
+            # First-year withdrawals accumulate by read-modify-write on
+            # their outputs (their window is the first retirement year
+            # only), keeping them out of the loop carry.
+            vstore(out_fyg, zero_v)
+            vstore(out_fyr, zero_v)
 
         init = [b1_0, b1_0, b2_0, b2_0, zero_v + 1.0, zero_v + 1.0]
         if any_bills:
@@ -721,39 +596,31 @@ def _make_kernel(
         init += [zero_v - 1.0] * n_fixed
         if st_.guardrails:
             init += [zero_v + 1.0]  # spending multiplier, year 0 = the plan
-        if track and not track_refs:
+        if track:
             init += [
-                zero_v,                      # alive-months counter: +1 per
-                                             # retirement month the path is
-                                             # alive at month start; at the
-                                             # kernel end /12 = years_to_
-                                             # ruin (survivors -> NaN). One
-                                             # add/month where the old
-                                             # death-month select cost
-                                             # mul+add+select (measured
-                                             # -2.1 ms at 1M x 600).
-                zero_v,                      # yg (year gross)
-                zero_v,                      # yr (year gross in ret-$,
-                                             #     deflated; x infl_ret
-                                             #     applied at consumption)
+                zero_v,  # alive-months counter: +1 per retirement month the
+                         # path is alive at month start; at the kernel end
+                         # /12 = years_to_ruin (survivors -> NaN)
+                zero_v,  # yg (year gross)
+                zero_v,  # yr (year gross deflated to T=0 dollars; x
+                         # infl_ret applied where it is consumed)
             ]
         init = tuple(init)
 
-        full_wy = w // MONTHS_PER_YEAR
-        partial_wy = (w % MONTHS_PER_YEAR != 0).astype(jnp.int32)
+        full_wy = _div12(w)
+        partial_wy = (_mod12(w) != 0).astype(jnp.int32)
 
         def draw(m):
             if with_shocks:
-                z_eq = shocks_ref[m - 1, 0]
-                z_ind = shocks_ref[m - 1, 1]
-                z_prem = shocks_ref[m - 1, 2]
+                z_eq = shocks_ref[m - 1, 0, cols]
+                z_ind = shocks_ref[m - 1, 1, cols]
+                z_prem = shocks_ref[m - 1, 2, cols]
             else:
                 z_eq, z_ind, z_prem = draw_normals(m)
             z_inf = f(F_RHO) * z_eq + f(F_RHO_C) * z_ind
             if st_.jumps:
-                # Compensated market-crash jump (config.market_crashes):
-                # folded into the exponents, so a crash month costs two
-                # extra draws and a handful of VPU flops — no extra exps.
+                # Compensated market-crash jump (config.market_crashes),
+                # folded into the exponents: no extra exps.
                 u, z_j = draw_jump(m)
                 jl = jnp.where(u < f(F_JP), f(F_JMU) + f(F_JSIG) * z_j, 0.0)
                 g1 = jnp.exp(
@@ -784,7 +651,7 @@ def _make_kernel(
             b2 = b2 * g2
             infl = infl * gi
 
-            years = ((m - 1) // MONTHS_PER_YEAR).astype(jnp.float32)
+            years = (_div12(m - 1)).astype(jnp.float32)
             contrib = f(F_CONTRIB0) * jnp.exp(f(F_LOG1P_GROWTH) * years)
             if st_.glide:
                 # Month-m target: a0 + (af - a0) * m / W (m <= W inside this
@@ -810,7 +677,7 @@ def _make_kernel(
 
                 b1, c1, b2, c2, st[i_bills], st[i_bills + 1], st[i_bills + 2] = (
                     lax.cond(
-                        m % MONTHS_PER_YEAR == 0,
+                        _mod12(m) == 0,
                         on_boundary,
                         lambda a: a,
                         (b1, c1, b2, c2, st[i_bills], st[i_bills + 1],
@@ -818,15 +685,13 @@ def _make_kernel(
                     )
                 )
             if track:
-                # Record-only work lives INSIDE the when: 11 of 12 months
-                # skip it entirely instead of computing-then-discarding.
-                @pl.when(m % MONTHS_PER_YEAR == 0)
+                @pl.when(_mod12(m) == 0)
                 def _():
                     slot = jnp.clip(
-                        m // MONTHS_PER_YEAR, 0, traj_len - 1
+                        _div12(m), 0, traj_len - 1
                     ).astype(jnp.int32)
-                    out_traj[pl.ds(slot, 1)] = (b1 + b2)[None]
-                    out_price[pl.ds(slot, 1)] = infl[None]
+                    series_store(out_traj, slot, b1 + b2)
+                    series_store(out_price, slot, infl)
 
             st[0], st[1], st[2], st[3], st[4] = b1, c1, b2, c2, infl
             return tuple(st)
@@ -845,17 +710,17 @@ def _make_kernel(
             if track:
                 total_rec = st[0] + st[2]
                 infl_rec = st[4]
-                # Retirement-start constants live in their output refs from
-                # here on; the retirement loop reads them back only on the
-                # rare record months.
-                out_start[:] = total_rec
-                out_inflret[:] = infl_rec
+                # Retirement-start constants live in their outputs from here
+                # on; the retirement loop reads them back only on the rare
+                # record months.
+                vstore(out_start, total_rec)
+                vstore(out_inflret, infl_rec)
                 slot = jnp.clip(full_wy + 1, 0, traj_len - 1).astype(jnp.int32)
 
                 @pl.when(partial_wy == 1)
                 def _():
-                    out_traj[pl.ds(slot, 1)] = total_rec[None]
-                    out_price[pl.ds(slot, 1)] = infl_rec[None]
+                    series_store(out_traj, slot, total_rec)
+                    series_store(out_price, slot, infl_rec)
             return tuple(st)
 
         # ------------------------------------------------------------------
@@ -871,14 +736,9 @@ def _make_kernel(
             k = m - w
             ret_idx = k - 1
             ret_idx_f = ret_idx.astype(jnp.float32)
-            # The month's ONE calendar mod; every year-boundary predicate
-            # below is an equality against it (see boundary_k above).
-            k_mod = k % MONTHS_PER_YEAR
+            k_mod = _mod12(k)
             if track:
-                if track_refs:
-                    ytr, yg, yr = out_ytr[:], yg_view[:], yr_view[:]
-                else:
-                    ytr, yg, yr = st[i_track:]
+                ytr, yg, yr = st[i_track:]
                 new_year = k_mod == 1  # ret_idx % 12 == 0, k = ret_idx+1
                 yg = jnp.where(new_year, 0.0, yg)
                 yr = jnp.where(new_year, 0.0, yr)
@@ -888,11 +748,9 @@ def _make_kernel(
             if st_.guardrails:
                 # Year-start guardrail check (years 1+; year 0 spends the
                 # plan): planned WR against the balance entering the month.
-                # Straight-line wheres — per-month scalar conds are the
-                # measured ~54 ms landmine in this loop.
                 smult = st[i_spend]
                 planned = 12.0 * f(F_EXPENSES) * smult * price0
-                wr_now = _rdiv(planned, jnp.maximum(b1 + b2, EPS))
+                wr_now = planned / jnp.maximum(b1 + b2, EPS)
                 s_new = jnp.where(
                     wr_now > f(F_GR_UP), smult * (1.0 - f(F_GR_ADJ)), smult
                 )
@@ -902,9 +760,7 @@ def _make_kernel(
                 s_new = jnp.minimum(
                     jnp.maximum(s_new, f(F_GR_FLOOR)), f(F_GR_CAP)
                 )
-                at_year_start = ((ret_idx % MONTHS_PER_YEAR) == 0) & (
-                    ret_idx > 0
-                )
+                at_year_start = (k_mod == 1) & (ret_idx > 0)
                 smult = jnp.where(at_year_start & alive, s_new, smult)
                 st[i_spend] = smult
                 expenses_eff = f(F_EXPENSES) * smult
@@ -912,12 +768,11 @@ def _make_kernel(
                 expenses_eff = f(F_EXPENSES)
             net_income = None
             for s in range(n_streams):
-                amount_s = stream_cell(s_amount, s)
+                amount_s = cell(s_amount, s)
                 active = ret_idx_f >= stream_start[s]
                 if st_.stream_capped[s]:
                     active = active & (
-                        ret_idx_f < stream_start[s]
-                        + stream_cell(s_duration, s)
+                        ret_idx_f < stream_start[s] + cell(s_duration, s)
                     )
                 if st_.stream_indexed[s]:
                     nominal = amount_s * price0
@@ -932,7 +787,7 @@ def _make_kernel(
                     st[slot_f] = fixed_s
                     nominal = fixed_s
                 inc = jnp.where(
-                    active, nominal * (1.0 - stream_cell(s_tax, s)), 0.0
+                    active, nominal * (1.0 - cell(s_tax, s)), 0.0
                 )
                 net_income = inc if net_income is None else net_income + inc
             if net_income is None:
@@ -942,7 +797,7 @@ def _make_kernel(
             if st_.mortality:
                 # Spending (and the income offsetting it) ends with the
                 # owner: zero need = no withdrawal and no possible ruin,
-                # while the estate below keeps evolving (growth, rebalance,
+                # while the estate keeps evolving (growth, rebalance,
                 # annual taxes) so the final balance is the bequest.
                 living = ret_idx_f < d_mort
                 need = jnp.where(living, need, 0.0)
@@ -977,9 +832,8 @@ def _make_kernel(
             eff2, nf2, nc2 = profile(b2, c2, st_.use_real2, r2)
             tnc = nc1 + nc2
             ftol = EPS + FAIL_RTOL * (need + total1)
-            # minimum: see frac_t — _rdiv error must not push frac above 1.
             frac_w = jnp.minimum(1.0, jnp.where(
-                need >= tnc, 1.0, _rdiv(need, jnp.maximum(tnc, EPS))
+                need >= tnc, 1.0, need / jnp.maximum(tnc, EPS)
             )) * wmask_f
             keep_w = 1.0 - frac_w
             ok1 = nc1 > 0
@@ -1002,9 +856,8 @@ def _make_kernel(
                 gw = gross1 + gross2  # zero where target was masked off
                 yg = yg + gw
                 # Deflated to T=0 dollars; the constant infl_ret factor
-                # (retirement-$ conversion) is applied where yr is consumed,
-                # saving a multiply per month and the infl_ret carry.
-                yr = yr + _rdiv(gw, jnp.maximum(price0, EPS))
+                # (retirement-$ conversion) is applied where yr is consumed.
+                yr = yr + gw / jnp.maximum(price0, EPS)
 
             # --- monthly rebalance (gain fractions unchanged by the
             # proportional sale above, so the profiles are reusable)
@@ -1016,8 +869,8 @@ def _make_kernel(
             dies_pre = dies_a | dies_b | fail_net
             if any_bills:
                 tmask_ok = wmask & ~fail_net
-                is_boundary = (m % MONTHS_PER_YEAR) == 0
-                is_settle = (m == t_end) & ((w % MONTHS_PER_YEAR) != 0)
+                is_boundary = (_mod12(m)) == 0
+                is_settle = (m == t_end) & ((_mod12(w)) != 0)
 
                 def apply_tax(args):
                     bb1, cc1, bb2, cc2, gg1, gg2 = args
@@ -1050,7 +903,6 @@ def _make_kernel(
                 dies_regular = dies & ~settle_failed
             else:
                 dies = dies_pre
-                settle_failed = jnp.zeros(shape, bool)
                 dies_regular = dies
 
             alive_f = jnp.where(dies, 0.0, alive_f)
@@ -1058,59 +910,51 @@ def _make_kernel(
                 # Alive-months counter: a ruined path was alive at the start
                 # of its death month, so the count freezes at exactly
                 # ret_idx + 1 — including the settle-month tax failure,
-                # where it freezes at R*12 (the final /12 gives R, the
-                # value the old select wrote). Survivors and mortality
-                # deaths (the estate keeps living) count to R*12 and are
-                # mapped to NaN at the kernel end. One add replaces the
-                # old per-month death-month select chain.
+                # where it freezes at R*12 (the final /12 gives R).
+                # Survivors and mortality deaths (the estate keeps living)
+                # count to R*12 and are mapped to NaN at the kernel end.
                 ytr = ytr + alive0_f
 
                 # First-year withdrawal capture: k <= 12 IS the year-0
-                # window (ret_idx <= 11), so the whole subgraph is skipped
-                # for the other ~588 months of a 50-year retirement.
+                # window (ret_idx <= 11).
                 @pl.when(k <= MONTHS_PER_YEAR)
                 def _():
-                    year_end = (k % MONTHS_PER_YEAR) == 0
+                    year_end = k_mod == 0
                     cap_fy = (alive0_f > 0.5) & (dies_regular | year_end)
-                    out_fyg[:] = jnp.where(cap_fy, yg, out_fyg[:])
-                    out_fyr[:] = jnp.where(
-                        cap_fy, yr * out_inflret[:], out_fyr[:]
-                    )
+                    vstore(out_fyg, jnp.where(cap_fy, yg, vload(out_fyg)))
+                    vstore(out_fyr, jnp.where(
+                        cap_fy, yr * vload(out_inflret), vload(out_fyr)
+                    ))
 
-                # Record-only work (slots, death bookkeeping, recorded
-                # values) lives INSIDE the when: 11 of 12 months skip it.
-                @pl.when((k % MONTHS_PER_YEAR) == 0)
+                # Record-only work lives INSIDE the when: 11 of 12 months
+                # skip it.
+                @pl.when(k_mod == 0)
                 def _():
                     slot = jnp.clip(
                         full_wy + partial_wy
-                        + (k + MONTHS_PER_YEAR - 1) // MONTHS_PER_YEAR,
+                        + _div12(k + MONTHS_PER_YEAR - 1),
                         0, traj_len - 1,
                     ).astype(jnp.int32)
                     yslot = jnp.clip(
-                        k // MONTHS_PER_YEAR - 1, 0, R - 1
+                        _div12(k) - 1, 0, R - 1
                     ).astype(jnp.int32)
                     total2 = b1 + b2
                     # Dead paths froze at death, so total2 is the at-death
                     # balance for deaths this year; older deaths pad zero.
                     # The alive-months counter IS the death month for dead
-                    # paths; for still-alive paths it equals k, which
-                    # passes the died_this_year window but is absorbed by
-                    # the alive_now branch of the mask/value selects below.
+                    # paths; for still-alive paths it equals k, which the
+                    # alive_now branch of the selects below absorbs.
                     death_k = ytr
-                    y_f = (k // MONTHS_PER_YEAR - 1).astype(jnp.float32)
+                    y_f = (_div12(k) - 1).astype(jnp.float32)
                     died_this_year = (
                         death_k > y_f * MONTHS_PER_YEAR + 0.5
                     ) & (death_k < k.astype(jnp.float32) + 0.5)
                     alive_now = alive_f > 0.5
                     wmask_rec = alive_now | died_this_year
                     value_rec = jnp.where(
-                        wmask_rec,
-                        jnp.where(
-                            alive_now, total2, jnp.maximum(0.0, total2)
-                        ),
-                        0.0,
+                        alive_now, total2, jnp.maximum(0.0, total2)
                     )
-                    start_bal = out_start[:]
+                    start_bal = vload(out_start)
                     wr_mask = (alive0_f > 0.5) & ~dies_regular
                     if st_.mortality:
                         # WR observations exist only for fully-lived years
@@ -1118,27 +962,24 @@ def _make_kernel(
                         wr_mask = wr_mask & living
                     wr_value = jnp.where(
                         start_bal > EPS,
-                        yr * out_inflret[:]
+                        yr * vload(out_inflret)
                         / jnp.maximum(start_bal, EPS) * 100.0,
                         0.0,
                     )
-                    old_t = out_traj[pl.ds(slot, 1)][0]
-                    out_traj[pl.ds(slot, 1)] = jnp.where(
-                        wmask_rec, value_rec, old_t
-                    )[None]
+                    old_t = out_traj[slot, cols]
+                    series_store(
+                        out_traj, slot, jnp.where(wmask_rec, value_rec, old_t)
+                    )
                     # Unconditional: dead paths' infl froze at death, so this
                     # carries the at-death price level into post-death slots
                     # (reference padding, backend/simulation.py:902-937).
-                    out_price[pl.ds(slot, 1)] = infl[None]
-                    old_w = out_wr[pl.ds(yslot, 1)][0]
-                    out_wr[pl.ds(yslot, 1)] = jnp.where(
-                        wr_mask, wr_value, old_w
-                    )[None]
+                    series_store(out_price, slot, infl)
+                    old_w = out_wr[yslot, cols]
+                    series_store(
+                        out_wr, yslot, jnp.where(wr_mask, wr_value, old_w)
+                    )
 
-                if track_refs:
-                    out_ytr[:], yg_view[:], yr_view[:] = ytr, yg, yr
-                else:
-                    st[i_track:] = [ytr, yg, yr]
+                st[i_track:] = [ytr, yg, yr]
 
             st[0], st[1], st[2], st[3], st[4], st[5] = (
                 b1, c1, b2, c2, infl, alive_f
@@ -1149,34 +990,23 @@ def _make_kernel(
         state = snapshot(state)
         final = lax.fori_loop(w + 1, t_end + 1, ret_month, state)
 
-        out_success[:] = final[5].reshape(out_success.shape)
-        out_final[:] = jnp.maximum(0.0, final[0] + final[2]).reshape(
-            out_final.shape
-        )
+        vstore(out_success, final[5])
+        vstore(out_final, jnp.maximum(0.0, final[0] + final[2]))
         if track:
-            # start/inflret were stored at the snapshot; fy_g/fy_r
-            # accumulated in their refs during the year-0 window.
             # years_to_ruin from the alive-months counter: still-alive
             # paths (survivors AND mortality deaths, whose estate lived
             # on) -> NaN; ruined paths -> death month / 12 (pre-retirement
             # kills counted zero months -> 0.0, the reference's value).
-            if track_refs:
-                ytr = out_ytr[:]
-            else:
-                ytr, _yg, _yr = final[i_track:]
-            ytr = jnp.where(
-                final[5] > 0.5, jnp.float32(jnp.nan),
-                ytr / MONTHS_PER_YEAR,
-            )
-            out_ytr[:] = ytr.reshape(out_ytr.shape)
+            ytr = final[i_track]
+            vstore(out_ytr, jnp.where(
+                final[5] > 0.5, jnp.float32(jnp.nan), ytr / MONTHS_PER_YEAR
+            ))
 
     return kernel
 
 
-def _pack_params(
-    params: SimParams, seed: int, working_months, retirement_years,
-    block_offset=0,
-):
+def _pack_params(params: SimParams, working_months, retirement_years,
+                 block_offset=0, antithetic=False):
     sq = math.sqrt(MONTHS_PER_YEAR)
     f32 = jnp.float32
     fp = jnp.stack(
@@ -1214,21 +1044,26 @@ def _pack_params(
             params.mort_b12.astype(f32),
             params.mort_cap.astype(f32),
         ]
-    )
+    )  # (NUM_FPARAMS,) or (NUM_FPARAMS, K) for a scenario batch
+    pad = [(0, FPARAMS_PAD - NUM_FPARAMS)] + [(0, 0)] * (fp.ndim - 1)
+    fp = jnp.pad(fp, pad)
     w = jnp.asarray(working_months, jnp.int32).reshape(-1)  # (K,) candidates
-    seeds = jnp.broadcast_to(jnp.asarray(seed, jnp.int32), w.shape)
     offs = jnp.broadcast_to(jnp.asarray(block_offset, jnp.int32), w.shape)
+    # Behind a barrier the flag stays data to the compiler too: iid and
+    # antithetic runs then compile to the same program (a folded constant
+    # lets XLA:CPU specialise the interpret-mode code, moving results by
+    # an ulp).
+    anti = lax.optimization_barrier(jnp.full(w.shape, int(antithetic), jnp.int32))
     ip = jnp.stack(
-        [w, w + jnp.int32(MONTHS_PER_YEAR * retirement_years), seeds, offs],
+        [w, w + jnp.int32(MONTHS_PER_YEAR * retirement_years), offs, anti],
         axis=1,
     )  # (K, NUM_IPARAMS)
     return ip, fp
 
 
-def _stream_inputs(params, in_specs, inputs):
+def _stream_inputs(params):
     f32 = jnp.float32
-    in_specs += [pl.BlockSpec(memory_space=pltpu.SMEM)] * 5
-    inputs += [
+    return [
         params.stream_amount.astype(f32),
         params.stream_months_from_t0.astype(f32),
         jnp.minimum(
@@ -1239,10 +1074,38 @@ def _stream_inputs(params, in_specs, inputs):
     ]
 
 
+def _n_blocks(n_paths: int) -> int:
+    return max(1, -(-n_paths // BLOCK_PATHS))
+
+
+def _call(kernel, grid, inputs, out_shape, interpret, aliases=None):
+    """One pallas_call on the Triton route: unblocked operands (the kernel
+    indexes its own block of paths), 1-D program blocks of BLOCK_PATHS."""
+    return pl.pallas_call(
+        kernel,
+        grid=grid,
+        out_shape=out_shape,
+        input_output_aliases=aliases or {},
+        interpret=interpret,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
+        name="mcrt_paths",
+    )(*inputs)
+
+
+def _inputs(params, seed, ip, fp, n_streams, shocks=None):
+    inputs = [_key_words(seed), ip, fp]
+    if n_streams:
+        inputs += _stream_inputs(params)
+    if shocks is not None:
+        inputs.append(shocks.astype(jnp.float32))
+    return inputs
+
+
 @partial(
     jax.jit,
     static_argnames=("n_paths", "retirement_years", "n_streams", "statics",
-                     "with_shocks", "interpret", "t_scan"),
+                     "with_shocks", "interpret"),
 )
 def pallas_simulate(
     params: SimParams,
@@ -1256,71 +1119,40 @@ def pallas_simulate(
     shocks: Optional[jnp.ndarray] = None,
     with_shocks: bool = False,
     interpret: bool = False,
-    t_scan: int = 0,  # accepted for API compatibility; loops are dynamic now
     block_offset=0,
 ):
-    """Probe-mode simulation on the Pallas TPU kernel.
+    """Probe-mode simulation: one working-months value, per-path outputs.
 
-    Returns (success_f32, final_balance) of shape (n_padded,); the caller
-    slices [:n_paths]. ``shocks`` (debug/parity only): (T, 3, BLOCK_ROWS, 128)
-    pre-drawn independent normals for a single block.
+    ``seed`` is a raw threefry key (the engine's stream key, so the draws
+    equal the scan's) or an integer seed. Returns (success_f32,
+    final_balance) of shape (n_padded,); the caller slices [:n_paths].
+    ``shocks`` (parity checks only): (T, C, n_padded) pre-drawn planes, see
+    SHOCK_* for the plane layout.
     """
-    del t_scan
     assert n_streams == params.n_streams
-    n_blocks = max(1, -(-n_paths // BLOCK_PATHS))
-    ip, fp = _pack_params(
-        params, seed, working_months, retirement_years,
-        block_offset=block_offset,
-    )
+    n_blocks = _n_blocks(n_paths)
+    ip, fp = _pack_params(params, working_months, retirement_years,
+                          block_offset, statics.antithetic and not with_shocks)
     if ip.shape[0] != 1:
         raise ValueError(
             f"pallas_simulate takes ONE working_months value, got "
             f"{ip.shape[0]} rows; use pallas_probe for candidate batches"
         )
-
-    kernel = _make_kernel(
-        n_streams, retirement_years, with_shocks, statics,
-        interpret=interpret,
+    kernel = _make_kernel(n_streams, retirement_years, with_shocks, statics)
+    vec = jax.ShapeDtypeStruct((1, n_blocks * BLOCK_PATHS), jnp.float32)
+    success, final = _call(
+        kernel, (n_blocks,),
+        _inputs(params, seed, ip, fp, n_streams,
+                shocks if with_shocks else None),
+        [vec, vec], interpret,
     )
-
-    in_specs = [
-        pl.BlockSpec(memory_space=pltpu.SMEM),  # iparams
-        pl.BlockSpec(memory_space=pltpu.SMEM),  # fparams
-    ]
-    inputs = [ip, fp]
-    if n_streams:
-        _stream_inputs(params, in_specs, inputs)
-    if with_shocks:
-        assert n_blocks == 1, "injected shocks support a single block only"
-        in_specs.append(pl.BlockSpec(memory_space=pltpu.ANY))
-        inputs.append(shocks.astype(jnp.float32))
-
-    out_shape = [
-        jax.ShapeDtypeStruct((n_blocks * BLOCK_ROWS, 128), jnp.float32),
-        jax.ShapeDtypeStruct((n_blocks * BLOCK_ROWS, 128), jnp.float32),
-    ]
-    out_specs = [
-        pl.BlockSpec((BLOCK_ROWS, 128), lambda i: (i, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((BLOCK_ROWS, 128), lambda i: (i, 0),
-                     memory_space=pltpu.VMEM),
-    ]
-
-    success, final = pl.pallas_call(
-        kernel,
-        grid=(n_blocks,),
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(*inputs)
     return success.reshape(-1), final.reshape(-1)
 
 
 @partial(
     jax.jit,
     static_argnames=("n_candidates", "n_paths", "retirement_years",
-                     "n_streams", "statics", "t_scan", "interpret"),
+                     "n_streams", "statics", "interpret"),
 )
 def pallas_probe(
     params: SimParams,
@@ -1332,75 +1164,52 @@ def pallas_probe(
     retirement_years: int,
     n_streams: int,
     statics: Statics,
-    t_scan: int = 0,  # accepted for API compatibility
     interpret: bool = False,
     block_offset=0,
 ):
     """Candidate-parallel probe: one dispatch for a whole candidate batch.
 
-    The grid is (candidates, path-blocks); iparams is blocked per candidate
-    so every grid step simulates its own working_months, while the PRNG seed
-    depends only on the path-block axis — all candidates therefore see
-    identical shock draws (common random numbers), exactly like the XLA
-    probe path. Returns per-candidate success probabilities in percent,
-    shape (n_candidates,).
+    The grid is (path blocks, candidates); every program simulates its own
+    candidate's working_months while the draws depend only on the path —
+    all candidates see identical draws (common random numbers), exactly
+    like the XLA probe path. Returns per-candidate success probabilities
+    in percent, shape (n_candidates,).
     """
-    del t_scan
     assert n_streams == params.n_streams
-    n_blocks = max(1, -(-n_paths // BLOCK_PATHS))
-    ip, fp = _pack_params(
-        params, seed, months, retirement_years, block_offset=block_offset
-    )
+    n_blocks = _n_blocks(n_paths)
+    ip, fp = _pack_params(params, months, retirement_years, block_offset,
+                          statics.antithetic)
     if ip.shape[0] != n_candidates:
         raise ValueError(
             f"months supplies {ip.shape[0]} candidate rows but the grid has "
-            f"n_candidates={n_candidates}; each grid step reads its own row, "
+            f"n_candidates={n_candidates}; each program reads its own row, "
             "so the counts must match exactly"
         )
-
     kernel = _make_kernel(
         n_streams, retirement_years, with_shocks=False, statics=statics,
-        block_axis=1, cand_axis=0, interpret=interpret,
+        block_axis=0, cand_axis=1,
     )
+    vec = jax.ShapeDtypeStruct(
+        (n_candidates, n_blocks * BLOCK_PATHS), jnp.float32
+    )
+    success, _final = _call(
+        kernel, (n_blocks, n_candidates),
+        _inputs(params, seed, ip, fp, n_streams), [vec, vec], interpret,
+    )
+    return jnp.mean(success[:, :n_paths], axis=1) * 100.0
 
-    in_specs = [
-        pl.BlockSpec(memory_space=pltpu.SMEM),  # full (K, NUM_IPARAMS); row = pid(0)
-        pl.BlockSpec(memory_space=pltpu.SMEM),
-    ]
-    inputs = [ip, fp]
-    if n_streams:
-        _stream_inputs(params, in_specs, inputs)
-    out_shape = [
-        jax.ShapeDtypeStruct(
-            (n_candidates, n_blocks * BLOCK_ROWS, 128), jnp.float32
-        ),
-        jax.ShapeDtypeStruct(
-            (n_candidates, n_blocks * BLOCK_ROWS, 128), jnp.float32
-        ),
-    ]
-    out_specs = [
-        pl.BlockSpec((1, BLOCK_ROWS, 128), lambda c, b: (c, b, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, BLOCK_ROWS, 128), lambda c, b: (c, b, 0),
-                     memory_space=pltpu.VMEM),
-    ]
-    success, _final = pl.pallas_call(
-        kernel,
-        grid=(n_candidates, n_blocks),
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(*inputs)
-    flat = success.reshape(n_candidates, -1)[:, :n_paths]
-    return jnp.mean(flat, axis=1) * 100.0
+
+FULL_OUTPUTS = (
+    "success", "final_balance", "start_balance", "years_to_ruin",
+    "first_year_gross", "first_year_real_gross", "inflation_at_retirement",
+    "trajectory", "price_levels", "withdrawal_rates",
+)
 
 
 @partial(
     jax.jit,
     static_argnames=("n_paths", "retirement_years", "n_streams", "statics",
-                     "traj_len", "t_scan", "with_shocks", "interpret",
-                     "packed"),
+                     "traj_len", "with_shocks", "interpret"),
 )
 def pallas_simulate_full(
     params: SimParams,
@@ -1412,129 +1221,56 @@ def pallas_simulate_full(
     n_streams: int,
     statics: Statics,
     traj_len: int,
-    t_scan: int = 0,  # accepted for API compatibility
     shocks=None,
     with_shocks: bool = False,
     interpret: bool = False,
     block_offset=0,
-    packed: int = 0,
 ):
-    """Full-statistics simulation on the Pallas kernel.
+    """Full-statistics simulation.
 
     Returns a dict of per-path arrays: success/final/start/ytr/fy_g/fy_r/
     infl_ret of shape (n_padded,), trajectory/price (n_padded, traj_len) and
-    wr (n_padded, R). Same semantics as the XLA scan kernel's tracked mode
-    (pinned by the injected-shocks parity suite).
-
-    ``packed`` selects the output-window layout (all bit-identical, pinned
-    on CPU and on device — see docs/NOTES.md §r5-window-packing):
-    0 = ten separate output refs (production default), 1 = one fused
-    (7+2L+R, rows, 128) window, 2 = fused window plus the track
-    accumulators (yg/yr/ytr) moved from loop carries into VMEM rows.
-    Layout 1 measured perf-NEUTRAL vs 0 on chip at 1M×600; kept with the
-    A/B harness `scripts/packed_ab.py` (numbers in NOTES).
+    wr (n_padded, R). Same semantics as the XLA scan kernel's tracked mode.
+    The kernel stores each recorded year as one row of a (len, n_padded)
+    series, so no series buffer lives on chip; the wrapper transposes to
+    the per-path layout.
     """
-    del t_scan
     assert n_streams == params.n_streams
-    rows = FULL_BLOCK_ROWS
-    block_paths = rows * 128
-    n_blocks = max(1, -(-n_paths // block_paths))
-    ip, fp = _pack_params(
-        params, seed, working_months, retirement_years,
-        block_offset=block_offset,
-    )
+    n_blocks = _n_blocks(n_paths)
+    n_pad = n_blocks * BLOCK_PATHS
+    ip, fp = _pack_params(params, working_months, retirement_years,
+                          block_offset, statics.antithetic and not with_shocks)
     if ip.shape[0] != 1:
         raise ValueError(
             f"pallas_simulate_full takes ONE working_months value, got "
             f"{ip.shape[0]} rows; use pallas_probe for candidate batches"
         )
     R = retirement_years
-
     kernel = _make_kernel(
         n_streams, retirement_years, with_shocks=with_shocks,
-        statics=statics, rows=rows, traj_len=traj_len, interpret=interpret,
-        packed=packed,
+        statics=statics, traj_len=traj_len,
     )
-
-    in_specs = [
-        pl.BlockSpec(memory_space=pltpu.SMEM),
-        pl.BlockSpec(memory_space=pltpu.SMEM),
+    inputs = _inputs(params, seed, ip, fp, n_streams,
+                     shocks if with_shocks else None)
+    f32 = jnp.float32
+    init_bal = params.initial_balance.astype(f32)
+    series_init = [
+        jnp.zeros((traj_len, n_pad), f32).at[0].set(init_bal),
+        jnp.ones((traj_len, n_pad), f32),
+        jnp.full((R, n_pad), jnp.nan, f32),
     ]
-    inputs = [ip, fp]
-    if n_streams:
-        _stream_inputs(params, in_specs, inputs)
-    if with_shocks:
-        assert n_blocks == 1, "injected shocks support a single block only"
-        in_specs.append(pl.BlockSpec(memory_space=pltpu.ANY))
-        inputs.append(shocks.astype(jnp.float32))
-
-    n_pad = n_blocks * rows
-    if packed:
-        # One fused output window: [0:7] per-path vectors (success, final,
-        # start, ytr, fy_g, fy_r, infl_ret), then traj, price, wr slabs.
-        # packed=2 adds two scratch rows (yg, yr accumulators) at [7:9] so
-        # the month loops carry three fewer values.
-        base = 9 if packed == 2 else 7
-        C = base + 2 * traj_len + R
-        out_shape = [jax.ShapeDtypeStruct((C, n_pad, 128), jnp.float32)]
-        out_specs = [
-            pl.BlockSpec((C, rows, 128), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM)
-        ]
-    else:
-        vec = jax.ShapeDtypeStruct((n_pad, 128), jnp.float32)
-        vec_spec = pl.BlockSpec((rows, 128), lambda i: (i, 0),
-                                memory_space=pltpu.VMEM)
-        series = lambda L: jax.ShapeDtypeStruct((L, n_pad, 128), jnp.float32)
-        series_spec = pl.BlockSpec(
-            (traj_len, rows, 128), lambda i: (0, i, 0),
-            memory_space=pltpu.VMEM
-        )
-        wr_spec = pl.BlockSpec(
-            (R, rows, 128), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-        )
-        out_shape = [vec] * 7 + [series(traj_len), series(traj_len),
-                                 series(R)]
-        out_specs = [vec_spec] * 7 + [series_spec, series_spec, wr_spec]
-
-    outs = pl.pallas_call(
-        kernel,
-        grid=(n_blocks,),
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(*inputs)
-    if packed:
-        out_full = outs[0]
-        succ, final, start, ytr, fy_g, fy_r, infl_ret = (
-            out_full[i] for i in range(7)
-        )
-        base = 9 if packed == 2 else 7
-        traj = out_full[base:base + traj_len]
-        price = out_full[base + traj_len:base + 2 * traj_len]
-        wr = out_full[base + 2 * traj_len:]
-    else:
-        (succ, final, start, ytr, fy_g, fy_r, infl_ret, traj, price,
-         wr) = outs
-    flat = lambda x: x.reshape(-1)
-    # (L, rows, 128) -> (path, L) with path = row * 128 + lane, matching the
-    # flattening of the per-path vectors above.
-    per_path_series = lambda x: jnp.transpose(x, (1, 2, 0)).reshape(
-        n_pad * 128, -1
+    first = len(inputs)
+    vec = jax.ShapeDtypeStruct((1, n_pad), f32)
+    out_shape = [vec] * 7 + [
+        jax.ShapeDtypeStruct(x.shape, f32) for x in series_init
+    ]
+    outs = _call(
+        kernel, (n_blocks,), inputs + series_init, out_shape, interpret,
+        aliases={first: 7, first + 1: 8, first + 2: 9},
     )
-    return {
-        "success": flat(succ),
-        "final_balance": flat(final),
-        "start_balance": flat(start),
-        "years_to_ruin": flat(ytr),
-        "first_year_gross": flat(fy_g),
-        "first_year_real_gross": flat(fy_r),
-        "inflation_at_retirement": flat(infl_ret),
-        "trajectory": per_path_series(traj),
-        "price_levels": per_path_series(price),
-        "withdrawal_rates": per_path_series(wr),
-    }
+    vecs = [x.reshape(-1) for x in outs[:7]]
+    series = [jnp.transpose(x) for x in outs[7:]]
+    return dict(zip(FULL_OUTPUTS, vecs + series))
 
 
 def pallas_scenario_grid(
@@ -1546,7 +1282,7 @@ def pallas_scenario_grid(
     """Public scenario-grid entry: validates (when values are concrete) that
     every row matches the compile-time ``statics`` before dispatching — a
     mixed batch would silently simulate rows under the wrong tax system.
-    See ``_pallas_scenario_grid_jit`` for the full docstring."""
+    See ``_scenario_grid_call`` for the layout."""
     _check_grid_statics(params_batch, kwargs["statics"])
     return _pallas_scenario_grid_jit(params_batch, months, seed, **kwargs)
 
@@ -1559,7 +1295,7 @@ def pallas_scenario_grid_raw(
 ):
     """Scenario grid returning the raw per-path outputs: (success, final)
     of shape (n_scenarios, n_padded) f32, caller slices [:, :n_paths].
-    Same validation, grid layout and CRN seeding as pallas_scenario_grid."""
+    Same validation, grid layout and CRN draws as pallas_scenario_grid."""
     _check_grid_statics(params_batch, kwargs["statics"])
     return _pallas_scenario_grid_raw_jit(params_batch, months, seed, **kwargs)
 
@@ -1581,26 +1317,21 @@ def _scenario_grid_call(
     working_months) pair in one Pallas call.
 
     ``params_batch`` is a struct-of-arrays SimParams (leading scenario axis,
-    see engine.scenario_batch.stack_params); the kernel grid is
-    (scenarios, path-blocks) with per-row parameters and path-block-only PRNG
-    seeding, so the whole grid shares shock draws (CRN across scenarios).
-    All scenarios in a batch MUST share ``statics`` (same tax systems and
-    stream structure) — the kernel bakes them into the executable, so a
-    mixed batch would silently simulate rows under the wrong tax system or
-    stream-indexing structure. Use
+    see engine.scenario_batch.stack_params); the grid is (path blocks,
+    scenarios) with per-row parameters and path-only draws, so the whole
+    grid shares its draws (CRN across scenarios). All scenarios in a batch
+    MUST share ``statics`` (same tax systems and stream structure) — the
+    kernel bakes them into the executable. Use
     ``engine.scenario_batch.grid_statics(configs)``, which validates and
-    returns the shared value; the concrete-value guard in the public
-    entries (``_check_grid_statics``) rejects mismatched rows as a second
-    line of defense. Returns (success, final) of shape
-    (n_scenarios, n_padded) f32.
+    returns the shared value; ``_check_grid_statics`` in the public entries
+    rejects mismatched rows as a second line of defense. Returns (success,
+    final) of shape (n_scenarios, n_padded) f32.
     """
     # Batched SimParams carry streams as (K, S); n_streams is the last axis.
     assert n_streams == int(params_batch.stream_amount.shape[-1])
-    n_blocks = max(1, -(-n_paths // BLOCK_PATHS))
-    ip, fp_rows = _pack_params(
-        params_batch, seed, months, retirement_years,
-        block_offset=block_offset,
-    )
+    n_blocks = _n_blocks(n_paths)
+    ip, fp_rows = _pack_params(params_batch, months, retirement_years,
+                               block_offset, statics.antithetic)
     # _pack_params stacks per-parameter vectors of shape (K,) -> fp (NF, K);
     # the kernel wants rows per scenario: (K, NF).
     fp = jnp.transpose(fp_rows)
@@ -1610,51 +1341,25 @@ def _scenario_grid_call(
             f"row and one SimParams row per scenario; got {ip.shape[0]} "
             f"months rows and {fp.shape[0]} parameter rows"
         )
-
     kernel = _make_kernel(
         n_streams, retirement_years, with_shocks=False, statics=statics,
-        block_axis=1, cand_axis=0, multi_params=True, interpret=interpret,
+        block_axis=0, cand_axis=1, multi_params=True,
     )
-
-    in_specs = [
-        pl.BlockSpec(memory_space=pltpu.SMEM),  # iparams (K, NUM_IPARAMS)
-        pl.BlockSpec(memory_space=pltpu.SMEM),  # fparams (K, NF)
-    ]
-    inputs = [ip, fp]
-    if n_streams:
-        _stream_inputs(params_batch, in_specs, inputs)
-    out_shape = [
-        jax.ShapeDtypeStruct(
-            (n_scenarios, n_blocks * BLOCK_ROWS, 128), jnp.float32
-        ),
-        jax.ShapeDtypeStruct(
-            (n_scenarios, n_blocks * BLOCK_ROWS, 128), jnp.float32
-        ),
-    ]
-    out_specs = [
-        pl.BlockSpec((1, BLOCK_ROWS, 128), lambda c, b: (c, b, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, BLOCK_ROWS, 128), lambda c, b: (c, b, 0),
-                     memory_space=pltpu.VMEM),
-    ]
-    success, final = pl.pallas_call(
-        kernel,
-        grid=(n_scenarios, n_blocks),
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(*inputs)
-    return (
-        success.reshape(n_scenarios, -1),
-        final.reshape(n_scenarios, -1),
+    vec = jax.ShapeDtypeStruct(
+        (n_scenarios, n_blocks * BLOCK_PATHS), jnp.float32
     )
+    success, final = _call(
+        kernel, (n_blocks, n_scenarios),
+        _inputs(params_batch, seed, ip, fp, n_streams), [vec, vec],
+        interpret,
+    )
+    return success, final
 
 
 @partial(
     jax.jit,
     static_argnames=("n_scenarios", "n_paths", "retirement_years",
-                     "n_streams", "statics", "t_scan", "interpret"),
+                     "n_streams", "statics", "interpret"),
 )
 def _pallas_scenario_grid_jit(
     params_batch: SimParams,
@@ -1666,13 +1371,11 @@ def _pallas_scenario_grid_jit(
     retirement_years: int,
     n_streams: int,
     statics: Statics,
-    t_scan: int = 0,  # accepted for API compatibility
     interpret: bool = False,
     block_offset=0,
 ):
     """Scenario-grid probe (see ``_scenario_grid_call``): returns success
     probabilities in percent, shape (n_scenarios,)."""
-    del t_scan
     success, _final = _scenario_grid_call(
         params_batch, months, seed,
         n_scenarios=n_scenarios, n_paths=n_paths,
@@ -1685,7 +1388,7 @@ def _pallas_scenario_grid_jit(
 @partial(
     jax.jit,
     static_argnames=("n_scenarios", "n_paths", "retirement_years",
-                     "n_streams", "statics", "t_scan", "interpret"),
+                     "n_streams", "statics", "interpret"),
 )
 def _pallas_scenario_grid_raw_jit(
     params_batch: SimParams,
@@ -1697,13 +1400,11 @@ def _pallas_scenario_grid_raw_jit(
     retirement_years: int,
     n_streams: int,
     statics: Statics,
-    t_scan: int = 0,  # accepted for API compatibility
     interpret: bool = False,
     block_offset=0,
 ):
     """Scenario grid returning raw (success, final) per-path arrays of
     shape (n_scenarios, n_padded); see ``_scenario_grid_call``."""
-    del t_scan
     return _scenario_grid_call(
         params_batch, months, seed,
         n_scenarios=n_scenarios, n_paths=n_paths,
@@ -1713,7 +1414,7 @@ def _pallas_scenario_grid_raw_jit(
 
 
 # ---------------------------------------------------------------------------
-# Multi-chip: the Pallas kernels under shard_map over a 'paths' mesh axis
+# Several devices: the kernels under shard_map over a 'paths' mesh axis
 # ---------------------------------------------------------------------------
 
 _SHARDED_CACHE: dict = {}
@@ -1735,14 +1436,13 @@ def pallas_probe_sharded(
 ):
     """Candidate probe data-parallel over a device mesh's first axis.
 
-    Each device runs ``local_blocks`` path blocks whose PRNG seeds are
-    indexed by GLOBAL block id (device_index * local_blocks + local block),
-    so the set of shock streams is a pure function of the seed — common
-    random numbers across candidates hold exactly as on one chip, and an
-    n-device run reproduces the single-chip run that uses the same global
-    block count (pinned by test_pallas_parity). The path count rounds up to
-    whole blocks per device; probabilities average over all simulated paths.
-    Per-candidate success means reduce with a psum over ICI.
+    Each device runs ``local_blocks`` path blocks at GLOBAL block ids
+    (device_index * local_blocks + local block); the draws are keyed by
+    global path, so common random numbers across candidates hold exactly
+    as on one device, and an n-device run reproduces the one-device run
+    that uses the same global block count. The path count rounds up to
+    whole blocks per device; probabilities average over all simulated
+    paths. Per-candidate success means reduce with a pmean.
 
     ``block_offset`` (traced) shifts every device's global block ids so
     Engine.probe can chunk a beyond-budget path count into mesh-sized
@@ -1794,7 +1494,7 @@ def pallas_probe_sharded(
     return fn(
         params,
         jnp.asarray(months, jnp.int32),
-        jnp.asarray(seed, jnp.int32),
+        _key_words(seed),
         jnp.asarray(block_offset, jnp.int32),
     )
 
@@ -1813,8 +1513,8 @@ def pallas_simulate_sharded(
 ):
     """Probe-mode simulation sharded over a 'paths' mesh: returns
     (success_f32, final_balance) with the leading axis sharded across
-    devices (n_dev * local_pad entries; caller slices [:n_paths]). Seeds are
-    global-block-indexed exactly like ``pallas_probe_sharded``."""
+    devices (n_dev * local_pad entries; caller slices [:n_paths]). Draws are
+    keyed by global path exactly like ``pallas_probe_sharded``."""
     from jax.sharding import PartitionSpec as P
 
     axis = mesh.axis_names[0]
@@ -1857,7 +1557,7 @@ def pallas_simulate_sharded(
     return fn(
         params,
         jnp.asarray(working_months, jnp.int32),
-        jnp.asarray(seed, jnp.int32),
+        _key_words(seed),
     )
 
 
@@ -1875,10 +1575,9 @@ def pallas_scenario_grid_sharded(
     interpret: bool = False,
 ):
     """Scenario-grid probe data-parallel over a 'paths' mesh: every device
-    simulates its share of paths for ALL scenarios (global-block PRNG
-    seeding preserves CRN across the grid), per-scenario success means
-    reduce with a pmean over ICI. Path count rounds up to whole blocks per
-    device."""
+    simulates its share of paths for ALL scenarios (global-path draws keep
+    CRN across the grid), per-scenario success means reduce with a pmean.
+    Path count rounds up to whole blocks per device."""
     from jax.sharding import PartitionSpec as P
 
     _check_grid_statics(params_batch, statics)
@@ -1924,7 +1623,7 @@ def pallas_scenario_grid_sharded(
     return fn(
         params_batch,
         jnp.asarray(months, jnp.int32),
-        jnp.asarray(seed, jnp.int32),
+        _key_words(seed),
     )
 
 
@@ -1945,8 +1644,8 @@ def pallas_scenario_grid_raw_sharded(
     (success, final) of shape (n_scenarios, n_dev * local_pad) sharded on
     the path axis. Downstream reductions (means, the selection-based
     percentiles) run under jit with sharding propagation, so their path-axis
-    sums lower to ICI psums — no host gather. Global-block PRNG seeding
-    keeps the grid's CRN and makes an n-device run reproduce 1-device."""
+    sums lower to collectives — no host gather. Global-path draws keep the
+    grid's CRN and make an n-device run reproduce 1-device."""
     from jax.sharding import PartitionSpec as P
 
     _check_grid_statics(params_batch, statics)
@@ -1991,7 +1690,7 @@ def pallas_scenario_grid_raw_sharded(
     return fn(
         params_batch,
         jnp.asarray(months, jnp.int32),
-        jnp.asarray(seed, jnp.int32),
+        _key_words(seed),
     )
 
 
@@ -2013,22 +1712,20 @@ def pallas_simulate_full_sharded(
 
     Per-path vectors come back sharded on their leading axis and the yearly
     series on their path axis (same dict layout as ``pallas_simulate_full``,
-    n_dev * local_pad entries; caller slices [:n_paths]). Global-block PRNG
-    seeding makes an n-device run reproduce the 1-device run bit-for-bit.
+    n_dev * local_pad entries; caller slices [:n_paths]). Global-path draws
+    make an n-device run reproduce the one-device run bit for bit.
 
     ``block_offset`` (traced, so it reuses the executable) shifts every
     device's global block ids — Engine._run_chunked uses it to split a
-    beyond-HBM-budget run into mesh-sized chunks whose union is the
-    unchunked run path for path (chunk sizes are multiples of
-    n_dev * block, so per-device padding never interleaves real blocks).
+    beyond-budget run into mesh-sized chunks whose union is the unchunked
+    run path for path.
     """
     from jax.sharding import PartitionSpec as P
 
     axis = mesh.axis_names[0]
     n_dev = int(mesh.shape[axis])
-    rows = FULL_BLOCK_ROWS
-    local_blocks = _local_blocks(n_paths, n_dev, rows * 128)
-    local_pad = local_blocks * rows * 128
+    local_blocks = _local_blocks(n_paths, n_dev, BLOCK_PATHS)
+    local_pad = local_blocks * BLOCK_PATHS
 
     key = (
         "full", mesh, local_blocks, retirement_years, n_streams, statics,
@@ -2040,12 +1737,7 @@ def pallas_simulate_full_sharded(
             name: (P(axis) if name not in
                    ("trajectory", "price_levels", "withdrawal_rates")
                    else P(axis, None))
-            for name in (
-                "success", "final_balance", "start_balance", "years_to_ruin",
-                "first_year_gross", "first_year_real_gross",
-                "inflation_at_retirement", "trajectory", "price_levels",
-                "withdrawal_rates",
-            )
+            for name in FULL_OUTPUTS
         }
 
         def shard_fn(params, w, seed, base_offset):
@@ -2077,6 +1769,6 @@ def pallas_simulate_full_sharded(
     return fn(
         params,
         jnp.asarray(working_months, jnp.int32),
-        jnp.asarray(seed, jnp.int32),
+        _key_words(seed),
         jnp.asarray(block_offset, jnp.int32),
     )

@@ -34,7 +34,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..config import Config
+from ..config import Config, ConfigurationError
 from .scenario_batch import ScenarioBatchResult, run_scenario_grid
 
 __all__ = [
@@ -57,7 +57,7 @@ _INF = float("inf")
 
 # Every numeric scalar Config field whose perturbation keeps the compiled
 # structure fixed (same Statics, same stream shape) is eligible. Bounds
-# mirror config.py's pydantic constraints so perturbed configs re-validate.
+# mirror config.py's field bounds so perturbed configs re-validate.
 SENSITIVITY_PARAMS: Dict[str, ParamSpec] = {
     "initial_balance": ParamSpec(0.0, _INF, "dollar", 10_000.0),
     "monthly_contribution": ParamSpec(0.0, _INF, "dollar", 100.0),
@@ -271,11 +271,9 @@ def sensitivity_fd(
                 # Only validation failures degrade — anything else (a
                 # renamed field, a type bug) must surface, not silently
                 # halve the derivative's accuracy.
-                from pydantic import ValidationError
-
                 try:
                     return Config(**with_field(base_dump, name, val))
-                except ValidationError:
+                except ConfigurationError:
                     return None
 
             plus_cfg = _variant(v + h_plus) if h_plus > 0.0 else None

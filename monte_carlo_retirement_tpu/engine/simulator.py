@@ -3,7 +3,7 @@
 Exposes the same public surface as the reference engine class
 (backend/simulation.py:126-1343) — seed-stream switching, the 7-tuple
 ``run_monte_carlo_simulations`` with pandas frames, ``_success_probability``
-and ``find_minimum_working_months`` — implemented on top of the compiled TPU
+and ``find_minimum_working_months`` — implemented on top of the compiled
 engine. Users of the reference can switch imports and keep their host code.
 """
 
@@ -24,39 +24,9 @@ from ..constants import (
 )
 from ..search.driver import find_minimum_working_months as _search
 from .runner import Engine, RunResult
+from .summary import median_first_year_withdrawal_rate, success_mask
 
 log = logging.getLogger("mcrt.simulator")
-
-
-def success_mask(summary_df: pd.DataFrame) -> pd.Series:
-    """Per-path success flags, with the reference's documented fallback:
-    when the Success column is absent, a path counts as successful iff its
-    final balance exceeds epsilon (reference backend/simulation.py:1130-1136).
-    The single definition shared by the facade, the payload assembly, the
-    CLI report and the plots."""
-    if "Success" in summary_df.columns:
-        return summary_df["Success"].astype(bool)
-    return summary_df["Final Balance"] > SMALL_EPSILON
-
-
-def median_first_year_withdrawal_rate(summary_df: pd.DataFrame) -> float:
-    """Median per-path first-year real gross withdrawal / start balance (%).
-
-    Withdrawals are deflated to retirement-date dollars (Trinity/Bengen basis).
-    """
-    if summary_df.empty:
-        return float("nan")
-    start = summary_df["Start Balance"]
-    col = (
-        "First Year Real Gross Withdrawal"
-        if "First Year Real Gross Withdrawal" in summary_df.columns
-        else "First Year Gross Withdrawal"
-    )
-    withdraw = summary_df[col]
-    valid = start > SMALL_EPSILON
-    if not valid.any():
-        return float("nan")
-    return float(((withdraw[valid] / start[valid]) * 100.0).median())
 
 
 class RetirementMonteCarloSimulator:

@@ -61,7 +61,7 @@ log = logging.getLogger("mcrt.cli")
 
 def _parse_args(argv) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
-        prog="mcrt", description="TPU retirement Monte Carlo CLI"
+        prog="mcrt", description="Retirement Monte Carlo CLI"
     )
     parser.add_argument("config", nargs="?", default="config.json",
                         help="scenario JSON path (default: config.json)")

@@ -1,7 +1,7 @@
 """Scenario-grid serving: request models, validation and result assembly.
 
-BASELINE stretch config 5 ("256 config variants x 1M paths batched on one
-chip with SSE progress"). The reference has no grid endpoint — its SSE
+A grid of up to hundreds of config variants x 1M paths batched on one
+device, with SSE progress. The reference has no grid endpoint — its SSE
 plumbing (reference: backend/server.py:322-413) is the pattern the
 streaming variant mirrors: ``phase`` / ``grid_chunk`` / ``result`` /
 ``error`` events, ``data: <json>\\n\\n`` frames, None sentinel.

@@ -282,8 +282,8 @@ def build_spec() -> Dict[str, Any]:
     return {
         "openapi": "3.1.0",
         "info": {
-            "title": "Retirement Monte Carlo — TPU",
-            "summary": "TPU-native retirement Monte Carlo simulation, "
+            "title": "Retirement Monte Carlo",
+            "summary": "GPU retirement Monte Carlo simulation, "
             "search, scenario grids, sensitivity and optimization.",
             "version": "3.0.0",
         },

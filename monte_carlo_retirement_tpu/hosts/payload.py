@@ -32,7 +32,7 @@ from ..constants import (
     TRAJECTORY_PERCENTILES,
     WITHDRAWAL_RATE_PERCENTILES,
 )
-from ..engine.simulator import median_first_year_withdrawal_rate, success_mask
+from ..engine.summary import median_first_year_withdrawal_rate, success_mask
 from ..timing import (
     expected_trajectory_length,
     retirement_age,

@@ -22,7 +22,7 @@ import pandas as pd
 from matplotlib.ticker import FuncFormatter
 
 from ..config import Config
-from ..engine.simulator import success_mask
+from ..engine.summary import success_mask
 from ..constants import (
     MONTHS_PER_YEAR,
     SMALL_EPSILON,

@@ -2,7 +2,7 @@
 
 Wire-compatible with the reference server's models
 (reference: backend/server.py:35-131) so the dashboard frontend and any
-existing API client work unchanged against the TPU backend.
+existing API client work unchanged against this backend.
 """
 
 from __future__ import annotations

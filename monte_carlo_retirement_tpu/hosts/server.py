@@ -790,7 +790,7 @@ def main(host: Optional[str] = None, port: Optional[int] = None) -> None:
     if port is None:
         port = int(os.environ.get("MCRT_PORT", os.environ.get("PORT", "8080")))
     configure_logging(logfile="server.log")
-    log.info("Monte Carlo Retirement API (TPU) starting on %s:%d", host, port)
+    log.info("Monte Carlo Retirement API starting on %s:%d", host, port)
     web.run_app(create_app(), host=host, port=port)
 
 

@@ -7,8 +7,8 @@ percentile band tables over ALL paths while never holding more than one
 chunk's yearly series live. Quantile selection by compare-and-count
 (ops/quantiles.py) needs only ``count(x <= v)`` — and counts are ADDITIVE
 across chunks, while a chunk is cheap to RE-SIMULATE deterministically
-(the kernel's global-block PRNG makes chunk ``c``'s paths a pure function
-of (seed, block offset)). So the k-th order statistic over 16M+ paths
+(the kernel keys its draws by global path, so chunk ``c``'s paths are a
+pure function of (seed, block offset)). So the k-th order statistic over 16M+ paths
 falls out of a host-driven multi-round search over the IEEE-754 ordered
 key space:
 
@@ -24,14 +24,14 @@ key space:
 Results are BIT-IDENTICAL to ``ops.quantiles.exact_quantiles_parts`` on
 the same data: both procedures return the smallest ordered key whose
 ``count(x <= decode(key))`` reaches the target rank under the device's
-compare semantics (monotone in the key, including the DAZ/FTZ subnormal
-collapse — see ``quantiles._snap_zero_band``), then apply the same f32
+compare semantics (monotone in the key), snap the subnormal band to zero
+(see ``quantiles._snap_zero_band``), then apply the same f32
 interpolation arithmetic. The search itself is pure numpy bookkeeping;
 callers own the device passes (see the protocol on :class:`BandSearch`).
 
 Reference analog: none — the reference computes percentiles in one numpy
 call over fully materialised arrays (backend/simulation.py:1045-1118);
-this module exists so the TPU engine can keep those semantics exactly at
+this module exists so the device engine can keep those semantics exactly at
 batch sizes that cannot materialise.
 """
 
@@ -65,9 +65,7 @@ def decode_keys(keys: np.ndarray) -> np.ndarray:
 
 def snap_zero_band(out: np.ndarray) -> np.ndarray:
     """Collapse subnormal-magnitude results (and -0.0) to +0.0 — numpy
-    twin of ``quantiles._snap_zero_band`` (device compares run DAZ/FTZ, so
-    every key in the subnormal band counts identically to 0.0 and the
-    exact answer for the band IS zero)."""
+    twin of ``quantiles._snap_zero_band``."""
     return np.where(
         np.abs(out) < np.finfo(np.float32).tiny,
         np.zeros((), np.float32), out,

@@ -1,9 +1,9 @@
 """Sort-free exact quantiles: bisection over the IEEE-754 bit order.
 
 The reference reduced percentiles on the host with numpy/pandas sorts
-(reference: backend/simulation.py:1045-1118); the round-2 TPU port moved
-them on device but kept XLA's O(n log n) sort, which dominated the
-full-statistics run (~0.4 s of 1M-row column sorts). This module replaces
+(reference: backend/simulation.py:1045-1118); an earlier port moved them
+on device but kept XLA's O(n log n) sort, which dominated the
+full-statistics run. This module replaces
 the sorts with *rank selection by binary search over the value space*:
 
   * The IEEE-754 bit pattern of a float, XOR-folded so that sign ordering
@@ -43,7 +43,7 @@ import jax.numpy as jnp
 from jax import lax
 
 # numpy scalars, NOT jnp: building a jnp.uint64 at import time would fail
-# on runtimes without x64 (the TPU serving process); the f64 branch is only
+# on runtimes without x64 (the float32 serving process); the f64 branch is only
 # ever traced where x64 is enabled.
 _F32_SIGN = np.uint32(0x80000000)
 _F64_SIGN = np.uint64(0x8000000000000000)
@@ -55,8 +55,8 @@ def _default_bits_per_pass() -> int:
     k bits per pass needs 2^k - 1 ordered probes per (column, rank) —
     compare work grows (2^k - 1)/k per element while the number of
     streaming passes over the data shrinks k-fold. The data passes are
-    HBM-bandwidth-bound at the serving scale (~200-400 MB per pass), so
-    k > 1 trades cheap VPU compares for expensive memory sweeps. k must
+    expected to be memory-bandwidth-bound at the serving scale (~200-400 MB
+    per pass), so k > 1 trades cheap compares for memory sweeps. k must
     divide the float's bit width (32/64): one of 1, 2, 4, 8.
 
     MCRT_QUANTILE_RADIX_BITS overrides (trace-time: different k compiles
@@ -85,10 +85,14 @@ def _from_ordered_bits(keys: jnp.ndarray, dtype) -> jnp.ndarray:
 def _snap_zero_band(out: jnp.ndarray) -> jnp.ndarray:
     """Collapse subnormal-magnitude results (and -0.0) to +0.0.
 
-    XLA runtimes run compares with DAZ/FTZ (subnormal operands read as
-    zero), so every key in the subnormal band is count-indistinguishable
-    from 0.0 and the bisection may land anywhere inside it; under those
-    same semantics the exact answer for the band IS zero."""
+    XLA:CPU runs compares with DAZ/FTZ (subnormal operands read as zero),
+    so every key in the subnormal band is count-indistinguishable from 0.0
+    and the bisection may land anywhere inside it; under those semantics
+    the exact answer for the band IS zero. XLA:GPU compares subnormals as
+    they are (chip_smoke.py checks it), so there the search resolves them
+    and this snap reports them as 0.0 too: both platforms give the same
+    value, which differs from numpy's only for a subnormal order statistic
+    (by less than 1.2e-38)."""
     tiny = np.finfo(np.dtype(out.dtype)).tiny
     return jnp.where(jnp.abs(out) < tiny, jnp.zeros((), out.dtype), out)
 

@@ -3,7 +3,7 @@
 Where the reference hauled every path back to the host and reduced with
 pandas (backend/simulation.py:1012-1118), these reductions run inside the
 same XLA program as the simulation: under a sharded paths axis they lower to
-ICI collectives, and only the small percentile tables cross back to the host.
+collectives, and only the small percentile tables cross back to the host.
 
 Every percentile is computed with the sort-free selection engine
 (ops/quantiles.py) — exact np.percentile/nanpercentile semantics at a

@@ -150,9 +150,8 @@ def rebalance(
 
     alloc2 = 1.0 - alloc1
     # Gather the selling side s and the buying side b. The realized-tax flag
-    # is applied as a 0/1 multiplier (not a boolean select) so the whole
-    # routine stays i1-vector-free — Mosaic/TPU cannot lower vector bool
-    # selects, and multiplying by exactly 0.0/1.0 is bit-identical.
+    # is applied as a 0/1 multiplier (not a boolean select); multiplying by
+    # exactly 0.0/1.0 is bit-identical.
     bal_s = jnp.where(sell1, bal1, bal2)
     basis_s = jnp.where(sell1, basis1, basis2)
     flag1 = jnp.asarray(use_real1, bal1.dtype)

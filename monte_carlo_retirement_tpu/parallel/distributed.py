@@ -1,4 +1,4 @@
-"""Multi-host (DCN) runtime initialization — ``jax.distributed`` glue.
+"""Multi-host runtime initialization — ``jax.distributed`` glue.
 
 The reference has no distributed execution at all: its widest scale-out is
 a single-host ``multiprocessing.Pool`` over Monte-Carlo paths (reference:
@@ -11,10 +11,10 @@ standard JAX multi-controller SPMD pattern:
   * ``parallel.mesh.make_mesh()`` then spans every device in the job,
     because ``jax.devices()`` is global after initialization. JAX orders
     global devices by process, so same-host devices stay mesh-adjacent:
-    path-axis collectives ride ICI and only the final KB-scale reduced
-    tables cross the DCN hop;
+    path-axis collectives run mostly within a host and only the final
+    KB-scale reduced tables cross the network between hosts;
   * the kernels need NO changes — the scan kernel's per-path counter RNG
-    and the Pallas kernels' global-block seed offsets are device-count
+    and the Pallas kernel's global-path keying are device-count
     invariant, so an (H hosts x D devices/host) mesh reproduces the
     single-process run bit-for-bit.
 
@@ -69,8 +69,8 @@ def initialize(
 ) -> bool:
     """Join (or form) the multi-host runtime. Idempotent.
 
-    With no arguments, defers to JAX's cluster auto-detection (TPU pod
-    metadata, SLURM, etc.); on a plain single host that detection raises
+    With no arguments, defers to JAX's cluster auto-detection (SLURM,
+    Open MPI, etc.); on a plain single host that detection raises
     and this returns False — single-process mode, nothing changes.
 
     Returns True iff the process is part of a multi-process runtime after
@@ -92,8 +92,8 @@ def initialize(
         # "Received data size doesn't match expected size" (observed: 268 vs
         # 4 whenever warm-cache runs overlapped dispatches; cold compiles
         # serialize execution and mask it). Inline dispatch restores the
-        # per-process program order the collective matching assumes. TPU
-        # runs don't take this branch (their runtime orders collectives).
+        # per-process program order the collective matching assumes. GPU
+        # runs don't take this branch.
         jax.config.update("jax_cpu_enable_async_dispatch", False)
     try:
         jax.distributed.initialize(

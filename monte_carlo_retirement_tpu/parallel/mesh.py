@@ -1,11 +1,11 @@
-"""Device-mesh helpers: path-parallel data distribution over ICI.
+"""Device-mesh helpers: path-parallel data distribution over devices.
 
 The reference parallelised paths with a multiprocessing.Pool
 (backend/simulation.py:982-1010); here the paths axis is a sharded array
 dimension on a `jax.sharding.Mesh`. The kernel itself is sharding-oblivious:
 every per-path quantity is elementwise over the batch axis, and the summary
 reductions (means, sorts for percentiles, histogram counts) are `jnp` ops
-that XLA lowers to ICI collectives (psum / all-gather) under jit.
+that XLA lowers to collectives (psum / all-gather) under jit.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ def constrain_paths_axis(mesh: Mesh, tree):
     Applied inside jit, this makes XLA partition the whole simulation SPMD
     over the mesh: the per-path state vectors and the counter-based RNG iota
     split by rows, and downstream reductions (success means, percentile
-    sorts) lower to ICI collectives.
+    sorts) lower to collectives.
     """
     sharding = NamedSharding(mesh, P(PATHS_AXIS))
 

@@ -2,7 +2,7 @@
 
 The reference searched serially — bracket with adaptive steps, bisect, then
 verify every month in the statistically plausible transition region
-(backend/simulation.py:1138-1343). On TPU, probing one candidate costs the
+(backend/simulation.py:1138-1343). On a device, probing one candidate costs the
 same as probing a batch (candidates are a vmap axis with shared shocks), so
 the search collapses to a few batched device calls:
 

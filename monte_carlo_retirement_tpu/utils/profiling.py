@@ -1,6 +1,6 @@
 """Tracing & profiling utilities.
 
-The reference had no profiling infrastructure (SURVEY §5); the TPU build
+The reference had no profiling infrastructure (SURVEY §5); this build
 provides: jax.profiler trace capture, per-phase device-time logging, and a
 compile-awareness helper that distinguishes compile time from run time (the
 first call through a jit boundary pays compilation; steady-state numbers are

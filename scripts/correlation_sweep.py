@@ -1,4 +1,4 @@
-"""BASELINE parity config #3: equity-inflation correlation sweep.
+"""Equity-inflation correlation sweep.
 
 Sweeps rho over [-1, 1] on the default scenario with shared shocks (CRN over
 the grid — identical raw draws, only the correlation mixing differs), one

@@ -7,11 +7,12 @@ same program (JAX multi-controller SPMD):
     MCRT_COORDINATOR=host0:PORT MCRT_NUM_PROCESSES=H MCRT_PROCESS_ID=h \
         python scripts/dist_worker.py
 
-On a real TPU pod the MCRT_* variables come from the pod launcher (or are
-omitted entirely — ``initialize()``'s auto-detection reads the pod
-metadata) and the devices are real chips. In the test rig each process
-fakes D virtual CPU devices (MCRT_LOCAL_DEVICE_COUNT) and the collectives
-run over gloo — same program, same mesh construction, same invariants.
+This is a CPU multi-process rig: each process fakes D virtual CPU devices
+(MCRT_LOCAL_DEVICE_COUNT) and the collectives run over gloo — same
+program, same mesh construction, same invariants as a multi-host job. A
+GPU host runs ONE process that drives all of its cards: a second JAX
+process on a card fails for want of memory, because each process
+reserves most of the card's memory when it starts.
 
 Prints one ``RESULT {json}`` line: the replicated reduced summary plus
 this process's addressable per-path shards (global offsets attached), so
@@ -125,11 +126,11 @@ def main() -> None:
     # the process boundary and the chunk boundary (runner.py _run_chunked).
     # Reduced tables from the chunked multi-host run must equal the
     # single-process unchunked run bit for bit; the parent test pins that.
-    from monte_carlo_retirement_tpu.engine.pallas_kernel import (
-        FULL_BLOCK_ROWS,
-    )
+    from monte_carlo_retirement_tpu.engine.pallas_kernel import BLOCK_PATHS
 
-    block = FULL_BLOCK_ROWS * 128
+    # two kernel blocks per device and chunk (a one-step interpret grid
+    # compiles differently on XLA:CPU)
+    block = 2 * BLOCK_PATHS
     # Expenses chosen so the 2-year outcome is genuinely mixed (~66%
     # success) — a degenerate 0/100% scenario would let a broken merge
     # hide behind constant tables.

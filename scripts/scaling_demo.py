@@ -2,7 +2,7 @@
 
 Runs the same 128k-path batch over 1/2/4/8 devices of an
 --xla_force_host_platform_device_count mesh and reports wall-clock scaling.
-(On real hardware the same code spans TPU chips over ICI; this demo uses
+(On a multi-GPU host the same code spans the cards; this demo uses
 virtual CPU devices, so absolute times are meaningless — the point is that
 the kernel + reductions shard transparently and scale.)
 

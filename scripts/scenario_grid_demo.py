@@ -1,8 +1,8 @@
-"""BASELINE stretch config #5: a 256-variant scenario grid on one chip.
+"""A 256-variant scenario grid on one device.
 
 Sweeps a 16x16 (expenses x equity-mean) grid of the default scenario on the
-Pallas kernel's (scenario, path-block) grid — per-row parameters, shared
-shock draws (CRN across the whole grid) — chunked into a few dispatches.
+GPU kernel's (path-block, scenario) grid — per-row parameters, shared shock
+draws (CRN across the whole grid) — chunked into a few dispatches.
 
 Usage: python scripts/scenario_grid_demo.py [n_paths] [chunk]
 """

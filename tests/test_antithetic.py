@@ -90,10 +90,11 @@ def test_scan_kernel_even_paths_match_iid_half_run():
 
 
 def test_pallas_even_blocks_match_iid_run():
-    """Pallas pairing is at global-block granularity: blocks (2k, 2k+1) share
-    stream k, so the even blocks of an antithetic run reproduce an iid run's
-    blocks bit for bit (interpret mode; the seeding structure is identical on
-    hardware)."""
+    """Pallas pairing is the scan's path-level rule: path 2i+1 replays path
+    2i's draws negated, and even path 2i reads draw row i — so the even
+    paths of an antithetic run reproduce a half-size iid run bit for bit
+    (interpret mode; the kernel keys draws by global path on the card
+    too)."""
     cfg = make_config(retirement_years=2, seed=303, **STOCHASTIC)
     params = SimParams.from_config(cfg, dtype=jnp.float32)
     kwargs = dict(
@@ -103,25 +104,22 @@ def test_pallas_even_blocks_match_iid_run():
         make_config(retirement_years=2, seed=303, antithetic=True, **STOCHASTIC)
     )
     assert anti_statics.antithetic
+    n = 2 * BLOCK_PATHS + 6
     succ_a, final_a = pallas_simulate(
-        params, 6, 99, n_paths=4 * BLOCK_PATHS,
-        statics=anti_statics, **kwargs,
+        params, 6, 99, n_paths=2 * n, statics=anti_statics, **kwargs,
     )
     succ_i, final_i = pallas_simulate(
-        params, 6, 99, n_paths=2 * BLOCK_PATHS,
-        statics=statics_from_config(cfg), **kwargs,
+        params, 6, 99, n_paths=n, statics=statics_from_config(cfg), **kwargs,
     )
-    final_a = np.asarray(final_a)
-    final_i = np.asarray(final_i)
-    B = BLOCK_PATHS
-    # antithetic blocks 0, 2 == iid blocks 0, 1
-    np.testing.assert_array_equal(final_a[0:B], final_i[0:B])
-    np.testing.assert_array_equal(final_a[2 * B:3 * B], final_i[B:2 * B])
-    # odd blocks are the negated-shock twins, not copies
-    assert not np.array_equal(final_a[B:2 * B], final_a[0:B])
+    final_a = np.asarray(final_a)[:2 * n]
+    final_i = np.asarray(final_i)[:n]
+    # antithetic even paths == iid paths 0..n-1
+    np.testing.assert_array_equal(final_a[0::2], final_i)
     np.testing.assert_array_equal(
-        np.asarray(succ_a)[0:B], np.asarray(succ_i)[0:B]
+        np.asarray(succ_a)[:2 * n][0::2], np.asarray(succ_i)[:n]
     )
+    # odd paths are the negated-shock twins, not copies
+    assert not np.array_equal(final_a[1::2], final_a[0::2])
 
 
 def test_antithetic_is_unbiased_and_reduces_variance():

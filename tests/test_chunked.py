@@ -1,7 +1,7 @@
 """Path-count chunking: a run split over device-sized chunks must equal the
-single-dispatch run (SURVEY §5's HBM OOM guard, VERDICT r2 item 5).
+single-dispatch run (SURVEY §5's device-memory OOM guard).
 
-The Pallas kernels seed shocks by GLOBAL block id, so chunk c with
+The kernel keys its draws by GLOBAL path index, so chunk c with
 block_offset c*B simulates exactly the paths the unchunked run would; these
 tests pin that equality in interpret mode on tiny budgets.
 """
@@ -14,13 +14,14 @@ import jax.numpy as jnp
 from conftest import make_config
 from monte_carlo_retirement_tpu.engine.pallas_kernel import (
     BLOCK_PATHS,
-    FULL_BLOCK_ROWS,
     pallas_probe,
     pallas_simulate_full,
 )
 from monte_carlo_retirement_tpu.engine.runner import Engine
 
-BLOCK = FULL_BLOCK_ROWS * 128
+# Chunks of two kernel blocks: XLA:CPU specialises a one-step interpret
+# grid, which can move float32 results by an ulp against a longer grid.
+BLOCK = 2 * BLOCK_PATHS
 
 
 def _engine(**overrides):
@@ -30,7 +31,7 @@ def _engine(**overrides):
 
 def _unchunked_reference(eng, w, n, traj_len):
     full = pallas_simulate_full(
-        eng.params, jnp.asarray(w, jnp.int32), eng._stream_seed("final"),
+        eng.params, jnp.asarray(w, jnp.int32), eng._key("final"),
         n_paths=n, retirement_years=eng.retirement_years,
         n_streams=eng.params.n_streams, statics=eng.statics,
         traj_len=traj_len, interpret=True,
@@ -223,7 +224,7 @@ def test_sharded_chunked_probe_matches_single_dispatch():
         mesh=mesh, n_candidates=16, retirement_years=eng.retirement_years,
         n_streams=eng.params.n_streams, statics=eng.statics, interpret=True,
     )
-    seed = eng._stream_seed("search")
+    seed = eng._key("search")
     whole = np.asarray(pallas_probe_sharded(
         eng.params, months, seed, n_paths=n, **kwargs
     ))
@@ -281,15 +282,15 @@ def test_chunked_probe_weighted_merge():
         n_streams=eng.params.n_streams, statics=eng.statics, interpret=True,
     )
     whole = np.asarray(pallas_probe(
-        eng.params, months, eng._stream_seed("search"), n_paths=n, **kwargs
+        eng.params, months, eng._key("search"), n_paths=n, **kwargs
     ))
     part0 = np.asarray(pallas_probe(
-        eng.params, months, eng._stream_seed("search"),
+        eng.params, months, eng._key("search"),
         n_paths=BLOCK_PATHS, block_offset=jnp.asarray(0, jnp.int32),
         **kwargs,
     ))
     part1 = np.asarray(pallas_probe(
-        eng.params, months, eng._stream_seed("search"),
+        eng.params, months, eng._key("search"),
         n_paths=BLOCK_PATHS, block_offset=jnp.asarray(1, jnp.int32),
         **kwargs,
     ))

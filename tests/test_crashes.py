@@ -29,8 +29,6 @@ import pytest
 from monte_carlo_retirement_tpu.config import Config
 from monte_carlo_retirement_tpu.engine.kernel import simulate_paths
 from monte_carlo_retirement_tpu.engine.pallas_kernel import (
-    BLOCK_PATHS,
-    BLOCK_ROWS,
     _check_grid_statics,
     pallas_simulate,
     statics_from_config,
@@ -47,7 +45,7 @@ from monte_carlo_retirement_tpu.ops.shocks import (
 )
 from tests.conftest import DETERMINISTIC, base_config_dict, make_config
 from tests.oracle import simulate_path_oracle
-from tests.test_pallas_parity import _drawn_shocks
+from tests.test_pallas_parity import N_PATHS, _drawn_shocks
 
 CRASHES = dict(
     frequency_per_year=1.0,
@@ -193,28 +191,26 @@ def test_crashes_pallas_matches_scan_with_injected_draws():
     assert statics.jumps
     _, key = stream_keys(505)
     T = W + 12 * R
-    base = _drawn_shocks(key, T, BLOCK_PATHS)  # (T, 3, rows, 128)
-    jd = _jump_draws_np(key, T, BLOCK_PATHS, jnp.float32)  # (T, n, 2)
-    planes = jnp.transpose(
-        jnp.asarray(jd, jnp.float32), (0, 2, 1)
-    ).reshape(T, 2, BLOCK_ROWS, 128)
-    shocks = jnp.concatenate([base, planes], axis=1)  # (T, 5, rows, 128)
+    base = _drawn_shocks(key, T, N_PATHS)  # (T, 3, n)
+    jd = _jump_draws_np(key, T, N_PATHS, jnp.float32)  # (T, n, 2)
+    planes = jnp.transpose(jnp.asarray(jd, jnp.float32), (0, 2, 1))
+    shocks = jnp.concatenate([base, planes], axis=1)  # (T, 5, n)
     succ_p, final_p = pallas_simulate(
         params, W, 0,
-        n_paths=BLOCK_PATHS, retirement_years=R,
+        n_paths=N_PATHS, retirement_years=R,
         n_streams=params.n_streams, statics=statics,
         shocks=shocks, with_shocks=True, interpret=True,
     )
     outs = simulate_paths(
-        params, jnp.int32(W), key, n_paths=BLOCK_PATHS, t_scan=T,
+        params, jnp.int32(W), key, n_paths=N_PATHS, t_scan=T,
         retirement_years=R, traj_len=0, dtype=jnp.float32, jumps=True,
     )
     succ_s = np.asarray(outs.success)
     np.testing.assert_array_equal(
-        np.asarray(succ_p)[:BLOCK_PATHS] > 0.5, succ_s
+        np.asarray(succ_p)[:N_PATHS] > 0.5, succ_s
     )
     final_s = np.asarray(outs.final_balance)
-    diff = np.abs(np.asarray(final_p)[:BLOCK_PATHS] - final_s)
+    diff = np.abs(np.asarray(final_p)[:N_PATHS] - final_s)
     rel = diff / np.maximum(np.abs(final_s), 1.0)
     bad = (rel > 5e-3) & (diff > 5.0)
     assert not bad.any(), f"max rel {rel.max():.2e}, max abs {diff.max():.2f}"
@@ -226,7 +222,7 @@ def test_crashes_off_pallas_leaves_unread():
     assert not statics.jumps
     p32 = SimParams.from_config(cfg, dtype=jnp.float32)
     kw = dict(
-        n_paths=BLOCK_PATHS, retirement_years=2,
+        n_paths=N_PATHS, retirement_years=2,
         n_streams=p32.n_streams, statics=statics, interpret=True,
     )
     base = pallas_simulate(p32, 6, 5, **kw)

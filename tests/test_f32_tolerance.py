@@ -1,14 +1,14 @@
 """Quantify the float32 semantic deviation (ops.tax.fail_rtol).
 
-On TPU the engine runs float32 with a 2e-5 *relative* funding-failure
+On the GPU the engine runs float32 with a 2e-5 *relative* funding-failure
 tolerance, vs the reference's absolute 1e-6 in float64. This test bounds the
 effect on the headline metric: success probability under f32 and f64 on the
 two shipped scenarios must agree within the Monte Carlo noise of the paired
 run sizes (the two dtypes draw different normals from the same threefry
 stream widths, so the comparison is statistical).
 
-A larger-scale measurement (1M paths on TPU) is recorded in docs/PARITY.md;
-this test pins the CI-scale bound so a regression in the f32 numerics
+On the card, chip_smoke.py compares the float32 kernel with the float32
+scan path by path (PERF.md); this test pins the CI-scale bound so a regression in the f32 numerics
 (a widened fail_rtol, a lost guard, an unstable reformulation) fails loudly.
 """
 

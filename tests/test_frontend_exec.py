@@ -1,4 +1,4 @@
-"""EXECUTABLE frontend verification (VERDICT r2 item 8).
+"""EXECUTABLE frontend verification.
 
 No browser or JS engine exists in this image, so these tests run the
 shipped dashboard sources under tools/jsmini — a vendored interpreter for

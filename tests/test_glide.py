@@ -22,7 +22,6 @@ import pytest
 
 from monte_carlo_retirement_tpu.engine.kernel import simulate_paths
 from monte_carlo_retirement_tpu.engine.pallas_kernel import (
-    BLOCK_PATHS,
     _check_grid_statics,
     pallas_simulate,
     statics_from_config,
@@ -35,7 +34,7 @@ from monte_carlo_retirement_tpu.engine.scenario_batch import (
 from monte_carlo_retirement_tpu.models.retirement import SimParams
 from monte_carlo_retirement_tpu.ops.shocks import stream_keys
 from tests.conftest import DETERMINISTIC, make_config
-from tests.test_pallas_parity import _drawn_shocks
+from tests.test_pallas_parity import N_PATHS, _drawn_shocks
 
 
 def _glide_replay(b0, contrib, g1, a0, af, months):
@@ -147,25 +146,25 @@ def test_glide_pallas_matches_scan_with_injected_shocks():
     assert statics.glide
     _, key = stream_keys(99)
     T = W + 12 * R
-    shocks = _drawn_shocks(key, T, BLOCK_PATHS)
+    shocks = _drawn_shocks(key, T, N_PATHS)
     succ_p, final_p = pallas_simulate(
         params, W, 0,
-        n_paths=BLOCK_PATHS, retirement_years=R,
+        n_paths=N_PATHS, retirement_years=R,
         n_streams=params.n_streams, statics=statics,
         shocks=shocks, with_shocks=True, interpret=True,
     )
     outs = simulate_paths(
-        params, jnp.int32(W), key, n_paths=BLOCK_PATHS, t_scan=T,
+        params, jnp.int32(W), key, n_paths=N_PATHS, t_scan=T,
         retirement_years=R, traj_len=0, dtype=jnp.float32,
     )
-    succ_p = np.asarray(succ_p)[:BLOCK_PATHS] > 0.5
+    succ_p = np.asarray(succ_p)[:N_PATHS] > 0.5
     succ_s = np.asarray(outs.success)
     assert succ_s.mean() not in (0.0, 1.0)  # mixed outcomes, a real test
     np.testing.assert_array_equal(succ_p, succ_s)
     # Same tolerance shape as test_pallas_parity, plus a $5 absolute floor:
     # near-ruin dust balances (tens of dollars left after 300 months of
     # big-minus-big arithmetic) amplify f32 reassociation into percents.
-    final_pa = np.asarray(final_p)[:BLOCK_PATHS]
+    final_pa = np.asarray(final_p)[:N_PATHS]
     final_sa = np.asarray(outs.final_balance)
     diff = np.abs(final_pa - final_sa)
     rel = diff / np.maximum(np.abs(final_sa), 1.0)
@@ -188,7 +187,7 @@ def test_glide_off_is_inert():
     statics = statics_from_config(cfg)
     assert not statics.glide
     kw = dict(
-        n_paths=BLOCK_PATHS, retirement_years=2,
+        n_paths=N_PATHS, retirement_years=2,
         n_streams=params.n_streams, statics=statics, interpret=True,
     )
     base = pallas_simulate(params, 6, 5, **kw)

@@ -1,6 +1,6 @@
 """Scenario-grid serving: engine stats, /api/grid and its SSE variant.
 
-BASELINE stretch config 5 gains a serving surface this round; these pin the
+The scenario grid's serving surface: these pin the
 decision-grade per-scenario statistics to numpy, the chunked runner to the
 single-dispatch result, and the endpoint/SSE contracts.
 """

@@ -23,7 +23,6 @@ import pytest
 from monte_carlo_retirement_tpu.config import Config
 from monte_carlo_retirement_tpu.engine.kernel import simulate_paths
 from monte_carlo_retirement_tpu.engine.pallas_kernel import (
-    BLOCK_PATHS,
     _check_grid_statics,
     pallas_simulate,
     statics_from_config,
@@ -36,7 +35,7 @@ from monte_carlo_retirement_tpu.engine.scenario_batch import (
 from monte_carlo_retirement_tpu.models.retirement import SimParams
 from monte_carlo_retirement_tpu.ops.shocks import stream_keys
 from tests.conftest import DETERMINISTIC, base_config_dict, make_config
-from tests.test_pallas_parity import _drawn_shocks
+from tests.test_pallas_parity import N_PATHS, _drawn_shocks
 
 RULE = dict(
     upper_wr_pct=6.0,
@@ -125,21 +124,21 @@ def test_guardrails_pallas_matches_scan_with_injected_shocks():
     assert statics.guardrails
     _, key = stream_keys(404)
     T = W + 12 * R
-    shocks = _drawn_shocks(key, T, BLOCK_PATHS)
+    shocks = _drawn_shocks(key, T, N_PATHS)
     succ_p, final_p = pallas_simulate(
         params, W, 0,
-        n_paths=BLOCK_PATHS, retirement_years=R,
+        n_paths=N_PATHS, retirement_years=R,
         n_streams=params.n_streams, statics=statics,
         shocks=shocks, with_shocks=True, interpret=True,
     )
     outs = simulate_paths(
-        params, jnp.int32(W), key, n_paths=BLOCK_PATHS, t_scan=T,
+        params, jnp.int32(W), key, n_paths=N_PATHS, t_scan=T,
         retirement_years=R, traj_len=0, dtype=jnp.float32,
     )
     succ_s = np.asarray(outs.success)
-    np.testing.assert_array_equal(np.asarray(succ_p)[:BLOCK_PATHS] > 0.5, succ_s)
+    np.testing.assert_array_equal(np.asarray(succ_p)[:N_PATHS] > 0.5, succ_s)
     final_s = np.asarray(outs.final_balance)
-    diff = np.abs(np.asarray(final_p)[:BLOCK_PATHS] - final_s)
+    diff = np.abs(np.asarray(final_p)[:N_PATHS] - final_s)
     rel = diff / np.maximum(np.abs(final_s), 1.0)
     bad = (rel > 5e-3) & (diff > 5.0)
     assert not bad.any(), (
@@ -158,7 +157,7 @@ def test_guardrails_off_is_inert():
     # A non-guardrails Pallas kernel never reads the leaves.
     p32 = SimParams.from_config(cfg, dtype=jnp.float32)
     kw = dict(
-        n_paths=BLOCK_PATHS, retirement_years=2,
+        n_paths=N_PATHS, retirement_years=2,
         n_streams=p32.n_streams, statics=statics, interpret=True,
     )
     base = pallas_simulate(p32, 6, 5, **kw)

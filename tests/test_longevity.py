@@ -35,8 +35,6 @@ import pytest
 from monte_carlo_retirement_tpu.config import Config
 from monte_carlo_retirement_tpu.engine.kernel import simulate_paths
 from monte_carlo_retirement_tpu.engine.pallas_kernel import (
-    BLOCK_PATHS,
-    BLOCK_ROWS,
     _check_grid_statics,
     pallas_simulate,
     statics_from_config,
@@ -56,7 +54,7 @@ from monte_carlo_retirement_tpu.ops.shocks import (
 from tests.conftest import DETERMINISTIC, base_config_dict, make_config
 from tests.oracle import simulate_path_oracle
 from tests.test_crashes import CRASHES, _jump_draws_np
-from tests.test_pallas_parity import _drawn_shocks
+from tests.test_pallas_parity import N_PATHS, _drawn_shocks
 
 LONGEVITY = dict(mode_age=86.0, dispersion_years=10.0, max_age=110.0)
 
@@ -279,14 +277,14 @@ def test_longevity_sentinel_is_bitwise_noop_scan():
 
 def test_longevity_sentinel_is_bitwise_noop_pallas():
     """Same pin for the Pallas kernel: a mortality-on executable draws its
-    extra uniform from a salted re-seed (interpret: a disjoint fold), so
-    sentinel rows reproduce the mortality-off executable bit for bit."""
+    extra uniform from its own disjoint fold_in stream, so sentinel rows
+    reproduce the mortality-off executable bit for bit."""
     cfg = make_config(retirement_years=3, seed=88)
     p32 = SimParams.from_config(cfg, dtype=jnp.float32)
     st_off = statics_from_config(cfg)
     assert not st_off.mortality
     kw = dict(
-        n_paths=BLOCK_PATHS, retirement_years=3,
+        n_paths=N_PATHS, retirement_years=3,
         n_streams=p32.n_streams, interpret=True,
     )
     off = pallas_simulate(p32, 10, 4, statics=st_off, **kw)
@@ -303,7 +301,7 @@ def test_longevity_off_pallas_leaves_unread():
     assert not statics.mortality
     p32 = SimParams.from_config(cfg, dtype=jnp.float32)
     kw = dict(
-        n_paths=BLOCK_PATHS, retirement_years=2,
+        n_paths=N_PATHS, retirement_years=2,
         n_streams=p32.n_streams, statics=statics, interpret=True,
     )
     base = pallas_simulate(p32, 6, 5, **kw)
@@ -343,25 +341,23 @@ def test_longevity_pallas_matches_scan_with_injected_draws():
     assert statics.mortality and statics.jumps
     _, key = stream_keys(606)
     T = W + 12 * R
-    base = _drawn_shocks(key, T, BLOCK_PATHS)  # (T, 3, rows, 128)
-    jd = _jump_draws_np(key, T, BLOCK_PATHS, jnp.float32)  # (T, n, 2)
-    jplanes = jnp.transpose(
-        jnp.asarray(jd, jnp.float32), (0, 2, 1)
-    ).reshape(T, 2, BLOCK_ROWS, 128)
-    u_mort = np.asarray(mortality_uniform(key, BLOCK_PATHS, jnp.float32))
-    mplane = np.zeros((T, 1, BLOCK_ROWS, 128), np.float32)
-    mplane[0, 0] = u_mort.reshape(BLOCK_ROWS, 128)
+    base = _drawn_shocks(key, T, N_PATHS)  # (T, 3, n)
+    jd = _jump_draws_np(key, T, N_PATHS, jnp.float32)  # (T, n, 2)
+    jplanes = jnp.transpose(jnp.asarray(jd, jnp.float32), (0, 2, 1))
+    u_mort = np.asarray(mortality_uniform(key, N_PATHS, jnp.float32))
+    mplane = np.zeros((T, 1, N_PATHS), np.float32)
+    mplane[0, 0] = u_mort
     shocks = jnp.concatenate(
         [base, jplanes, jnp.asarray(mplane)], axis=1
-    )  # (T, 6, rows, 128)
+    )  # (T, 6, n)
     succ_p, final_p = pallas_simulate(
         params, W, 0,
-        n_paths=BLOCK_PATHS, retirement_years=R,
+        n_paths=N_PATHS, retirement_years=R,
         n_streams=params.n_streams, statics=statics,
         shocks=shocks, with_shocks=True, interpret=True,
     )
     outs = simulate_paths(
-        params, jnp.int32(W), key, n_paths=BLOCK_PATHS, t_scan=T,
+        params, jnp.int32(W), key, n_paths=N_PATHS, t_scan=T,
         retirement_years=R, traj_len=0, dtype=jnp.float32, jumps=True,
         mortality=True,
     )
@@ -369,10 +365,10 @@ def test_longevity_pallas_matches_scan_with_injected_draws():
     # The rule must bind for the comparison to mean anything.
     assert 0.05 < succ_s.mean() < 1.0
     np.testing.assert_array_equal(
-        np.asarray(succ_p)[:BLOCK_PATHS] > 0.5, succ_s
+        np.asarray(succ_p)[:N_PATHS] > 0.5, succ_s
     )
     final_s = np.asarray(outs.final_balance)
-    diff = np.abs(np.asarray(final_p)[:BLOCK_PATHS] - final_s)
+    diff = np.abs(np.asarray(final_p)[:N_PATHS] - final_s)
     rel = diff / np.maximum(np.abs(final_s), 1.0)
     bad = (rel > 5e-3) & (diff > 5.0)
     assert not bad.any(), f"max rel {rel.max():.2e}, max abs {diff.max():.2f}"

@@ -1,9 +1,10 @@
 """Pallas kernel logic parity vs the XLA scan kernel (interpret mode, CPU).
 
-The Pallas TPU kernel shares the tax/portfolio ops with the scan kernel but
-re-implements the month-loop control flow for VMEM residency. Injecting the
-exact same shock draws into both must reproduce identical path outcomes
-(success flags) and near-identical balances (float32 reassociation only).
+The kernel re-implements the scan's month loop with each path's state held
+in registers. Injecting the exact same shock draws into both must reproduce
+identical path outcomes (success flags) and near-identical balances (float32
+reassociation only); the kernel's own in-kernel draws are the scan's stream,
+so the same holds without injection.
 """
 
 import jax
@@ -14,7 +15,6 @@ import pytest
 from monte_carlo_retirement_tpu.engine.kernel import simulate_paths
 from monte_carlo_retirement_tpu.engine.pallas_kernel import (
     BLOCK_PATHS,
-    BLOCK_ROWS,
     pallas_simulate,
     statics_from_config,
 )
@@ -23,7 +23,13 @@ from monte_carlo_retirement_tpu.ops.shocks import stream_keys
 from tests.conftest import make_config
 
 
+# Paths per injected-shock comparison: enough for the mismatch bounds below
+# to mean something, several kernel blocks.
+N_PATHS = 4096
+
+
 def _drawn_shocks(key, months, n_paths):
+    """The scan's base draws as kernel shock planes: (months, 3, n_paths)."""
     z = jnp.stack(
         [
             jax.random.normal(
@@ -32,7 +38,7 @@ def _drawn_shocks(key, months, n_paths):
             for m in range(1, months + 1)
         ]
     )
-    return jnp.transpose(z, (0, 2, 1)).reshape(months, 3, BLOCK_ROWS, 128)
+    return jnp.transpose(z, (0, 2, 1))
 
 
 @pytest.mark.parametrize(
@@ -98,12 +104,12 @@ def test_pallas_matches_scan_with_injected_shocks(working_months, overrides):
     R = 5
     T = working_months + 12 * R
 
-    shocks = _drawn_shocks(key, T, BLOCK_PATHS)
+    shocks = _drawn_shocks(key, T, N_PATHS)
     succ_p, final_p = pallas_simulate(
         params,
         working_months,
         0,
-        n_paths=BLOCK_PATHS,
+        n_paths=N_PATHS,
         retirement_years=R,
         n_streams=params.n_streams,
         statics=statics_from_config(cfg),
@@ -115,7 +121,7 @@ def test_pallas_matches_scan_with_injected_shocks(working_months, overrides):
         params,
         jnp.int32(working_months),
         key,
-        n_paths=BLOCK_PATHS,
+        n_paths=N_PATHS,
         t_scan=T,
         retirement_years=R,
         traj_len=0,
@@ -138,7 +144,6 @@ def test_pallas_full_mode_matches_scan(working_months):
     """Full-statistics Pallas mode reproduces every tracked output of the
     scan kernel under injected shocks."""
     from monte_carlo_retirement_tpu.engine.pallas_kernel import (
-        FULL_BLOCK_ROWS,
         pallas_simulate_full,
     )
     from monte_carlo_retirement_tpu.timing import expected_trajectory_length
@@ -168,18 +173,9 @@ def test_pallas_full_mode_matches_scan(working_months):
     _, key = stream_keys(17)
     R = 4
     T = working_months + 12 * R
-    N = FULL_BLOCK_ROWS * 128
+    N = N_PATHS
     L = expected_trajectory_length(working_months, R)
-
-    z = jnp.stack(
-        [
-            jax.random.normal(
-                jax.random.fold_in(key, m), (N, 3), dtype=jnp.float32
-            )
-            for m in range(1, T + 1)
-        ]
-    )
-    shocks = jnp.transpose(z, (0, 2, 1)).reshape(T, 3, FULL_BLOCK_ROWS, 128)
+    shocks = _drawn_shocks(key, T, N)
 
     full = pallas_simulate_full(
         params, working_months, 0,
@@ -278,12 +274,12 @@ def test_pallas_fuzz_differential_statics_combos():
         params = SimParams.from_config(cfg, dtype=jnp.float32)
         _, key = stream_keys(cfg.seed)
         T = W + 12 * R
-        shocks = _drawn_shocks(key, T, BLOCK_PATHS)
+        shocks = _drawn_shocks(key, T, N_PATHS)
         succ_p, final_p = pallas_simulate(
             params,
             W,
             0,
-            n_paths=BLOCK_PATHS,
+            n_paths=N_PATHS,
             retirement_years=R,
             n_streams=params.n_streams,
             statics=statics_from_config(cfg),
@@ -295,7 +291,7 @@ def test_pallas_fuzz_differential_statics_combos():
             params,
             jnp.int32(W),
             key,
-            n_paths=BLOCK_PATHS,
+            n_paths=N_PATHS,
             t_scan=T,
             retirement_years=R,
             traj_len=0,
@@ -324,9 +320,9 @@ def test_pallas_fuzz_differential_statics_combos():
 
 
 def test_pallas_sharded_matches_single_device_exactly():
-    """The shard_map'd Pallas entry points seed PRNG streams by GLOBAL block
-    id, so an 8-device run must reproduce the single-device run that uses
-    the same global block count bit-for-bit (interpret mode, CPU mesh)."""
+    """The shard_map'd Pallas entry points key their draws by GLOBAL path, so
+    an 8-device run must reproduce the single-device run that uses the same
+    global block count bit-for-bit (interpret mode, CPU mesh)."""
     from monte_carlo_retirement_tpu.engine.pallas_kernel import (
         BLOCK_PATHS as BP,
         pallas_probe,
@@ -339,7 +335,9 @@ def test_pallas_sharded_matches_single_device_exactly():
     mesh = make_mesh()
     n_dev = len(jax.devices())
     assert n_dev == 8  # conftest forces 8 virtual CPU devices
-    n_paths = n_dev * BP
+    # Two blocks per device: XLA:CPU specialises a one-step interpret grid,
+    # which can move float32 results by an ulp; the card runs one program.
+    n_paths = 2 * n_dev * BP
 
     cfg = make_config(
         retirement_years=2,
@@ -385,7 +383,7 @@ def test_pallas_sharded_matches_single_device_exactly():
 def test_pallas_candidate_axis_preserves_crn():
     """A candidate's probability must not depend on which other candidates
     share the batch (common random numbers are structural: the candidate
-    grid axis never enters the PRNG seed)."""
+    grid axis never enters the draws' keys)."""
     from monte_carlo_retirement_tpu.engine.pallas_kernel import (
         BLOCK_PATHS as BP,
         pallas_probe,
@@ -424,7 +422,6 @@ def test_pallas_full_sharded_matches_single_device_exactly():
     """Sharded full-statistics mode reproduces the single-device run
     bit-for-bit across every output (interpret mode, CPU mesh)."""
     from monte_carlo_retirement_tpu.engine.pallas_kernel import (
-        FULL_BLOCK_ROWS,
         pallas_simulate_full,
         pallas_simulate_full_sharded,
         statics_from_config,
@@ -434,7 +431,7 @@ def test_pallas_full_sharded_matches_single_device_exactly():
 
     mesh = make_mesh()
     n_dev = len(jax.devices())
-    n_paths = n_dev * FULL_BLOCK_ROWS * 128
+    n_paths = 2 * n_dev * BLOCK_PATHS  # two blocks per device, see above
 
     cfg = make_config(
         retirement_years=2,
@@ -463,53 +460,108 @@ def test_pallas_full_sharded_matches_single_device_exactly():
         )
 
 
-@pytest.mark.parametrize("packed", [1, 2])
-def test_full_mode_packed_layouts_bit_identical(packed):
-    """The fused-output-window layouts (packed=1: one VMEM window for all
-    ten outputs; packed=2: + track accumulators in VMEM rows instead of
-    loop carries) are bit-identical to the production layout on every
-    output — the A/B harness scripts/packed_ab.py pins the same on the
-    real chip (docs/NOTES.md §r5-window-packing)."""
-    from monte_carlo_retirement_tpu.engine.pallas_kernel import (
-        FULL_BLOCK_ROWS,
-        pallas_simulate_full,
-        statics_from_config,
-    )
-    from monte_carlo_retirement_tpu.timing import expected_trajectory_length
+_CRASHES = dict(
+    frequency_per_year=1.0, mean_drop_pct=25.0, size_volatility=0.3,
+    inv2_beta=0.5,
+)
 
+
+@pytest.mark.parametrize(
+    "working_months,overrides,scan_flags",
+    [
+        # Plain iid draws, realized-gains taxes.
+        (13, dict(monthly_expenses=3_600.0,
+                  inv1_use_realized_gains_tax_system=True,
+                  inv1_realized_gains_tax_rate=0.15), {}),
+        # Antithetic pairs + crash draws + the longevity uniform: every
+        # stream of ops/shocks.py, paired at path level.
+        (7, dict(antithetic=True, market_crashes=_CRASHES,
+                 longevity=dict(mode_age=45.0, dispersion_years=4.0,
+                                max_age=90.0)),
+         dict(antithetic=True, jumps=True, mortality=True)),
+        # Annual bills, guardrails and a glide path with a capped stream.
+        (25, dict(monthly_expenses=4_800.0,
+                  inv1_annual_tax_on_gains_rate=0.2,
+                  allocation_inv1_final_pct=0.3,
+                  spending_guardrails=dict(upper_wr_pct=5.0,
+                                           lower_wr_pct=3.0,
+                                           adjustment_pct=10.0),
+                  other_income_streams=[{
+                      "name": "P", "monthly_amount_today": 600.0,
+                      "start_at_age": 42.0, "duration_years": 2,
+                      "inflation_indexed": False, "tax_rate": 0.1}]), {}),
+    ],
+)
+def test_in_kernel_draws_match_scan_per_path(working_months, overrides,
+                                             scan_flags):
+    """Without injection the kernel draws the scan's own threefry stream
+    (keyed by global path, month and draw), so the two kernels simulate the
+    same paths: success flags agree and balances differ only by float32
+    rounding."""
     cfg = make_config(
-        retirement_years=3,
-        seed=23,
-        initial_balance=400_000.0,
-        monthly_contribution=2_000.0,
-        monthly_expenses=3_100.0,
-        inv1_annual_tax_on_gains_rate=0.25,
-        inv1_use_realized_gains_tax_system=False,
-        other_income_streams=[
-            {
-                "name": "S",
-                "monthly_amount_today": 700.0,
-                "start_at_age": 40.5,
-                "duration_years": None,
-                "inflation_indexed": True,
-                "tax_rate": 0.12,
-            }
-        ],
+        **{**dict(retirement_years=3, seed=31, initial_balance=120_000.0,
+                  monthly_contribution=1_000.0, monthly_expenses=1_600.0,
+                  inv1_returns_volatility=0.2), **overrides},
+    )
+    params = SimParams.from_config(cfg, dtype=jnp.float32)
+    _, key = stream_keys(31)
+    n = 3 * BLOCK_PATHS + 17  # ragged: the last block is padding-heavy
+    succ_p, final_p = pallas_simulate(
+        params, working_months, key, n_paths=n, retirement_years=3,
+        n_streams=params.n_streams, statics=statics_from_config(cfg),
+        interpret=True,
+    )
+    outs = simulate_paths(
+        params, jnp.int32(working_months), key, n_paths=n,
+        t_scan=working_months + 36, retirement_years=3, traj_len=0,
+        dtype=jnp.float32, **scan_flags,
+    )
+    succ_s = np.asarray(outs.success)
+    assert 0.05 < succ_s.mean() < 1.0  # mixed outcomes: the rules bind
+    np.testing.assert_array_equal(np.asarray(succ_p)[:n] > 0.5, succ_s)
+    final_s = np.asarray(outs.final_balance)
+    diff = np.abs(np.asarray(final_p)[:n] - final_s)
+    # A path that nearly ran out and recovered carries a cancellation-
+    # amplified rounding error, so each difference is measured against the
+    # larger of its own balance and the median surviving balance.
+    scale = np.maximum(np.abs(final_s), np.median(final_s[succ_s]))
+    rel = diff / scale
+    assert float(rel.max()) < 1e-4, f"max rel {rel.max():.2e}"
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_scan_on_the_card(gpu):
+    """On a GPU: the kernel as compiled for the card (no interpret mode)
+    against the f32 scan on the same card, per path, on a ruin-heavy
+    scenario with every extension on. chip_smoke.py repeats this at 1M
+    paths."""
+    cfg = make_config(
+        retirement_years=30, seed=5, initial_balance=400_000.0,
+        monthly_contribution=2_000.0, monthly_expenses=3_000.0,
+        inv1_returns_volatility=0.15, antithetic=True,
+        allocation_inv1_final_pct=0.4, market_crashes=_CRASHES,
+        longevity=dict(mode_age=88.0, dispersion_years=9.0),
+        spending_guardrails=dict(upper_wr_pct=6.0, lower_wr_pct=3.0),
     )
     params = SimParams.from_config(cfg, dtype=jnp.float32)
     statics = statics_from_config(cfg)
-    N = FULL_BLOCK_ROWS * 128
-    L = expected_trajectory_length(7, 3)
-
-    outs = {
-        p: pallas_simulate_full(
-            params, 7, 23, n_paths=N, retirement_years=3, n_streams=1,
-            statics=statics, traj_len=L, interpret=True, packed=p,
-        )
-        for p in (0, packed)
-    }
-    for name in outs[0]:
-        np.testing.assert_array_equal(
-            np.asarray(outs[0][name]), np.asarray(outs[packed][name]),
-            err_msg=name,
-        )
+    _, key = stream_keys(5)
+    n, w = 65_536, 120
+    succ_p, final_p = pallas_simulate(
+        params, w, key, n_paths=n, retirement_years=30,
+        n_streams=params.n_streams, statics=statics,
+    )
+    outs = simulate_paths(
+        params, jnp.int32(w), key, n_paths=n, t_scan=w + 360,
+        retirement_years=30, traj_len=0, dtype=jnp.float32,
+        antithetic=True, jumps=True, mortality=True,
+    )
+    succ_s = np.asarray(outs.success)
+    succ_k = np.asarray(succ_p)[:n] > 0.5
+    assert 0.05 < succ_s.mean() < 1.0
+    assert (succ_k != succ_s).mean() <= 1e-4
+    final_s = np.asarray(outs.final_balance)
+    both = succ_k & succ_s
+    scale = np.maximum(np.abs(final_s), np.median(final_s[both]))
+    rel = (np.abs(np.asarray(final_p)[:n] - final_s) / scale)[both]
+    assert (rel > 1e-4).mean() <= 1e-3, f"max rel {rel.max():.2e}"

@@ -163,7 +163,7 @@ def test_grid_entry_points_validate_months_row_count():
 
 def test_pallas_scenario_grid_sharded_matches_single_device():
     """8-shard scenario grid reproduces the 1-device grid bit-for-bit
-    (global-block PRNG seeding; interpret mode on the CPU mesh)."""
+    (draws keyed by global path; interpret mode on the CPU mesh)."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -187,7 +187,7 @@ def test_pallas_scenario_grid_sharded_matches_single_device():
     batch = stack_params(cfgs, dtype=jnp.float32)
     statics = statics_from_config(cfgs[0])
     months = jnp.asarray([0, 0, 0], jnp.int32)
-    n_paths = n_dev * BLOCK_PATHS
+    n_paths = 2 * n_dev * BLOCK_PATHS
 
     single = pallas_scenario_grid(
         batch, months, 5, n_scenarios=3, n_paths=n_paths,

@@ -217,4 +217,4 @@ def test_probe_rejects_short_horizon_and_negative_months():
     with pytest.raises(ValueError, match="working_months"):
         engine.run(-12, 8)
     with pytest.raises(ValueError, match="seed stream"):
-        engine._stream_seed("serach")
+        engine._key("serach")

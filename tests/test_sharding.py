@@ -87,8 +87,9 @@ def test_sharded_reduction_collectives():
 
 
 def test_probe_backend_resolution(monkeypatch):
-    """Auto backend policy: pallas on bare TPU, sharded pallas on meshed
-    TPU, scan on CPU or under x64/f64 (exact-semantics path)."""
+    """Auto backend policy: the kernel on a bare GPU, its sharded form on a
+    meshed GPU, the scan on the CPU or at float64, and an error on any
+    other platform (no hidden fallback)."""
     import jax as _jax
     import jax.numpy as _jnp
 
@@ -98,15 +99,15 @@ def test_probe_backend_resolution(monkeypatch):
     eng = Engine(make_config(), dtype=_jnp.float32)
     # CPU (the test platform): always scan regardless of mesh
     assert eng._resolve_probe_backend(None) == "scan"
-    assert eng._resolve_run_backend(None, 1000) == "scan"
+    assert eng._resolve_run_backend(None) == "scan"
 
-    monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(_jax, "default_backend", lambda: "gpu")
     assert eng._resolve_probe_backend(None) == "pallas"
-    assert eng._resolve_run_backend(None, 10**6) == "pallas"
+    assert eng._resolve_run_backend(None) == "pallas"
 
     eng_mesh = Engine(make_config(), dtype=_jnp.float32, mesh=make_mesh())
     assert eng_mesh._resolve_probe_backend(None) == "pallas_sharded"
-    assert eng_mesh._resolve_run_backend(None, 1000) == "pallas_sharded"
+    assert eng_mesh._resolve_run_backend(None) == "pallas_sharded"
 
     eng64 = Engine(make_config(), dtype=_jnp.float64)
     assert eng64._resolve_probe_backend(None) == "scan"
@@ -114,41 +115,57 @@ def test_probe_backend_resolution(monkeypatch):
     # explicit override always wins
     assert eng._resolve_probe_backend("scan") == "scan"
     monkeypatch.setenv("MCRT_RUN_BACKEND", "scan")
-    assert eng._resolve_run_backend(None, 8) == "scan"
+    assert eng._resolve_run_backend(None) == "scan"
+
+    monkeypatch.setattr(_jax, "default_backend", lambda: "rocm")
+    with pytest.raises(RuntimeError, match="unsupported platform"):
+        eng._resolve_probe_backend(None)
 
 
-def test_extreme_horizon_falls_back_to_scan(caplog):
-    """A working-months value whose trajectory width exceeds the Pallas
-    VMEM budget must degrade to the scan backend (linear time, like the
-    reference) instead of a Mosaic compile failure."""
-    import logging as _logging
-
+def test_extreme_horizon_falls_back_to_scan():
+    """The kernel has no horizon limit any more (each recorded year is one
+    row store in device memory), so an extreme working horizon keeps the
+    kernel: its trajectory width covers the horizon and the kernel at that
+    width records the final year like the scan does."""
     import jax.numpy as _jnp
     import numpy as _np
 
+    from monte_carlo_retirement_tpu.engine.kernel import simulate_paths
     from monte_carlo_retirement_tpu.engine.pallas_kernel import (
-        PALLAS_MAX_TRAJ_LEN,
+        BLOCK_PATHS,
+        pallas_simulate_full,
     )
     from monte_carlo_retirement_tpu.engine.runner import Engine
+    from monte_carlo_retirement_tpu.timing import expected_trajectory_length
     from tests.conftest import make_config
 
     eng = Engine(make_config(retirement_years=2), dtype=_jnp.float32)
-    months = (PALLAS_MAX_TRAJ_LEN + 10) * 12  # width over the VMEM budget
-    with caplog.at_level(_logging.WARNING, logger="mcrt.engine"):
-        outs = eng.run(months, 16, stream="final", backend="pallas")
-    assert _np.isfinite(_np.asarray(outs.final_balance)).all()
-    assert any("falling back to the scan backend" in r.message
-               for r in caplog.records)
+    months = 266 * 12  # wider than any on-chip series buffer would hold
+    traj_len = eng._pallas_traj_len(months)
+    L = expected_trajectory_length(months, 2)
+    assert traj_len >= L
+    full = pallas_simulate_full(
+        eng.params, months, eng._key("final"), n_paths=BLOCK_PATHS,
+        retirement_years=2, n_streams=eng.params.n_streams,
+        statics=eng.statics, traj_len=traj_len, interpret=True,
+    )
+    outs = simulate_paths(
+        eng.params, _jnp.int32(months), eng._key("final"),
+        n_paths=BLOCK_PATHS, t_scan=months + 24, retirement_years=2,
+        traj_len=L, dtype=_jnp.float32,
+    )
+    traj_k = _np.asarray(full["trajectory"])[:BLOCK_PATHS, :L]
+    traj_s = _np.asarray(outs.trajectory)
+    assert _np.isfinite(traj_k).all()
+    _np.testing.assert_allclose(traj_k[:, -1], traj_s[:, -1], rtol=1e-3)
 
-    # A huge SEARCH CAP alone must not evict small runs from the Pallas
-    # path: the width retries with the run's own (bucketed) months.
+    # A huge SEARCH CAP sizes one width for the scenario; overrides in the
+    # same 10-year step share one width.
     eng2 = Engine(
         make_config(retirement_years=2, starting_working_months_search=30_000),
         dtype=_jnp.float32,
     )
-    assert eng2._pallas_traj_len(12) is not None
-    assert eng2._pallas_traj_len((PALLAS_MAX_TRAJ_LEN + 10) * 12) is None
-    # Bucketing: overrides in the same 10-year step share one width.
+    assert eng2._pallas_traj_len(12) >= expected_trajectory_length(12, 2)
     assert eng2._pallas_traj_len(1_210) == eng2._pallas_traj_len(1_310)
 
 
@@ -158,7 +175,7 @@ def test_dryrun_multichip_wide_meshes(n_devices):
 
     The in-process suite is pinned at the conftest's 8-device mesh, so the
     global-block / block-offset arithmetic in the sharded Pallas entry
-    points (per-shard PRNG block seeding keyed by a GLOBAL block index)
+    points (each shard's draws keyed by GLOBAL path index)
     had only ever been exercised at n=8 — exactly the regime where an
     off-by-one in block-offset math hides. A clean subprocess forces a
     fresh CPU platform with n virtual devices and asserts n-shard ==

@@ -264,31 +264,3 @@ def test_compile_cache_put_is_atomic(tmp_path):
     )
 
     assert verify_compilation_cache(str(tmp_path)) == 0
-
-
-def test_compile_cache_partitioned_per_host_cpu():
-    """The persistent cache is partitioned by a host-CPU fingerprint:
-    XLA:CPU AOT executables embed the compile machine's feature set but
-    jax's cache key does not, so a cache directory migrated to a different
-    host would load foreign native code (observed: gloo aborts inside the
-    two-process test after this repo changed machines). The fingerprint
-    must be stable within a process and sensitive to the feature set."""
-    from monte_carlo_retirement_tpu.engine.runner import (
-        host_cache_fingerprint,
-    )
-
-    fp = host_cache_fingerprint()
-    assert fp == host_cache_fingerprint()  # deterministic
-    assert len(fp) == 12
-    int(fp, 16)  # hex digest prefix
-    # The enabled cache dir (Engine() enables it on construction in this
-    # suite) points inside a host-<fp> partition of the configured base.
-    import jax
-
-    from tests.conftest import make_config
-    from monte_carlo_retirement_tpu.engine.runner import Engine
-
-    Engine(make_config())
-    cache_dir = jax.config.jax_compilation_cache_dir
-    assert cache_dir is not None
-    assert os.path.basename(cache_dir) == f"host-{fp}"
